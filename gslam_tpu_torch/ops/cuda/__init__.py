@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``), bound with ctypes.
+
+Each wrapper module (``fastnms``, ``brief``, ``matcher``) takes its plain
+PyTorch version for CPU tensors and, for CUDA tensors, launches its
+kernel or raises; its ``launches`` counter counts kernel launches.
+Sources live in ``gslam_tpu_torch/csrc``; :mod:`.build` compiles them on
+first use.  Importing these modules builds nothing.
+"""

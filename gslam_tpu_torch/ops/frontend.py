@@ -1,0 +1,329 @@
+"""ORB-style feature frontend: FAST + orientation + rotated BRIEF.
+
+Counterpart of the single-scale path of ``gslam_tpu/ops/frontend.py``.
+The functions here are the plain PyTorch versions, written to round as
+the jnp reference does: the separable filters are explicit
+shift-multiply-adds in the reference's tap order, the FAST arc sums run
+sequentially from the first arc pixel, and top-K selection is a stable
+descending sort (``lax.top_k`` breaks ties by lowest index).
+
+:func:`extract_features` with ``use_kernels=True`` routes the detector
+and the BRIEF sampler through the CUDA kernels of
+:mod:`gslam_tpu_torch.ops.cuda`, which take these functions' results as
+their gold.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DESC_WORDS = 8        # 256-bit descriptors as 8 x 32-bit words
+
+# 16-pixel Bresenham circle of radius 3 (standard FAST), (dx, dy) pairs
+FAST_OFFSETS = np.array([
+    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
+    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2),
+    (-1, 3)], np.int32)
+
+PATCH_R = 15          # orientation / descriptor patch radius
+BRIEF_BITS = DESC_WORDS * 32
+
+# select_keypoints' two-stage top-K: chunk-local, then global
+_CHUNK = 2048
+_K_CHUNK = 64
+
+
+class Features(NamedTuple):
+    """Fixed-capacity keypoint set for one image."""
+
+    uv: torch.Tensor      # (K, 2) float32 pixel coords (x, y)
+    score: torch.Tensor   # (K,) response
+    angle: torch.Tensor   # (K,) radians
+    desc: torch.Tensor    # (K, DESC_WORDS) int32 (uint32 bit pattern)
+    valid: torch.Tensor   # (K,) bool
+    count: torch.Tensor   # () int32
+
+
+# ---------------------------------------------------------------------------
+# blur
+
+
+def _gauss_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    x = np.arange(-radius, radius + 1, dtype=np.float32)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def _sep_filter(img: torch.Tensor, krow, kcol) -> torch.Tensor:
+    """Separable filter as shift-multiply-adds (SAME zero padding), in the
+    reference's tap order, skipping zero taps after the first, so that
+    the sums round as the reference's do."""
+    krow = np.asarray(krow, np.float32)
+    kcol = np.asarray(kcol, np.float32)
+    rr = len(krow) // 2
+    rc = len(kcol) // 2
+    H, W = img.shape
+    p = F.pad(img, (rr, rr))
+    out = float(krow[0]) * p[:, 0:W]
+    for j in range(1, len(krow)):
+        if krow[j] != 0.0:
+            out = out + float(krow[j]) * p[:, j:j + W]
+    p = F.pad(out, (0, 0, rc, rc))
+    out = float(kcol[0]) * p[0:H, :]
+    for j in range(1, len(kcol)):
+        if kcol[j] != 0.0:
+            out = out + float(kcol[j]) * p[j:j + H, :]
+    return out
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
+                  radius: int = 4) -> torch.Tensor:
+    """Separable Gaussian blur, SAME padding. img (H, W) f32."""
+    k = _gauss_kernel1d(sigma, radius)
+    return _sep_filter(img, k, k)
+
+
+# ---------------------------------------------------------------------------
+# FAST
+
+
+def fast_score(img: torch.Tensor, threshold: float = 0.06,
+               arc: int = 9) -> torch.Tensor:
+    """FAST-N/16 corner score map (0 where not a corner).
+
+    A corner needs >= ``arc`` contiguous circle pixels all brighter (or
+    all darker) than centre +/- threshold; the score is the largest
+    sum(|p_i - p| - t) over qualifying arcs, summed in arc order.
+    """
+    shifted = torch.stack(
+        [torch.roll(img, (-int(dy), -int(dx)), (0, 1))
+         for (dx, dy) in FAST_OFFSETS], 0)           # (16, H, W)
+    diff = shifted - img[None]
+    ext = torch.cat([diff, diff[:arc]], 0)           # (16 + arc, H, W)
+    win = torch.stack([ext[s:s + arc] for s in range(16)], 0)
+    okb = (win > threshold).all(1)                   # (16, H, W)
+    okd = (win < -threshold).all(1)
+    mb = win - threshold
+    md = -win - threshold
+    sb = mb[:, 0]
+    sd = md[:, 0]
+    for k in range(1, arc):
+        sb = sb + mb[:, k]
+        sd = sd + md[:, k]
+    zero = img.new_zeros(())
+    score = torch.maximum(torch.where(okb, sb, zero).amax(0),
+                          torch.where(okd, sd, zero).amax(0))
+    H, W = img.shape
+    ys = torch.arange(H, device=img.device)[:, None]
+    xs = torch.arange(W, device=img.device)[None, :]
+    border = (ys >= 3) & (ys < H - 3) & (xs >= 3) & (xs < W - 3)
+    return torch.where(border, score, zero)
+
+
+def nms(score: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Keep local maxima in (2r+1)^2 windows (off-image neighbours are
+    -inf, as in the reference's reduce_window)."""
+    w = 2 * radius + 1
+    mx = F.max_pool2d(score[None, None], w, stride=1, padding=radius)[0, 0]
+    return torch.where((score >= mx) & (score > 0), score,
+                       score.new_zeros(()))
+
+
+def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Top-k along the last axis, ties broken by lowest index
+    (``lax.top_k``'s rule)."""
+    val, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return val[..., :k], idx[..., :k]
+
+
+def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor
+              ) -> torch.Tensor:
+    """``img[yi, xi]`` with the reference's gather rule: negative
+    indices wrap once, then indices are clamped into range."""
+    H, W = img.shape
+    yi = torch.where(yi < 0, yi + H, yi).clamp(0, H - 1)
+    xi = torch.where(xi < 0, xi + W, xi).clamp(0, W - 1)
+    return img[yi, xi]
+
+
+def select_keypoints(score: torch.Tensor, max_kps: int = 512,
+                     border: int = PATCH_R + 1,
+                     raw_score: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Top-K maxima -> (uv (K,2), score (K,), valid (K,), count).
+
+    Two-stage selection as the reference: chunk-local top-64 over chunks
+    of 2048 pixels, then a global top-K of the candidates, so the result
+    is identical even where a chunk holds more than 64 maxima.  With
+    ``raw_score`` the maxima are refined to subpixel by a 1-D quadratic
+    fit per axis.
+    """
+    H, W = score.shape
+    dev = score.device
+    ys = torch.arange(H, device=dev)[:, None]
+    xs = torch.arange(W, device=dev)[None, :]
+    ok = ((ys >= border) & (ys < H - border)
+          & (xs >= border) & (xs < W - border))
+    s = torch.where(ok, score, score.new_zeros(())).reshape(-1)
+    n = s.shape[0]
+    pad = (-n) % _CHUNK
+    sp = F.pad(s, (0, pad)).reshape(-1, _CHUNK)
+    cv, ci = _topk_stable(sp, min(_K_CHUNK, max_kps))
+    base = (torch.arange(sp.shape[0], device=dev) * _CHUNK)[:, None]
+    cand_idx = (ci + base).reshape(-1)
+    val, sel = _topk_stable(cv.reshape(-1), max_kps)
+    idx = cand_idx[sel]
+    yi = idx // W
+    xi = idx % W
+    y = yi.to(torch.float32)
+    x = xi.to(torch.float32)
+    if raw_score is not None:
+        r = raw_score
+
+        def parab(cm, c0, cp):
+            denom = cm - 2.0 * c0 + cp
+            off = 0.5 * (cm - cp) / torch.where(
+                denom.abs() < 1e-9, denom.new_full((), 1e-9), denom)
+            return off.clamp(-0.5, 0.5)
+
+        c0 = _gather2d(r, yi, xi)
+        x = x + parab(_gather2d(r, yi, xi - 1), c0, _gather2d(r, yi, xi + 1))
+        y = y + parab(_gather2d(r, yi - 1, xi), c0, _gather2d(r, yi + 1, xi))
+    valid = val > 0
+    uv = torch.stack([x, y], -1)
+    return uv, val, valid, valid.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# orientation (intensity centroid over a square patch, separable)
+
+
+def orientation_map(img: torch.Tensor, radius: int = PATCH_R
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-image centroid moments (m10, m01) over a square patch, as two
+    separable 31-tap filters each."""
+    r = radius
+    ramp = np.arange(-r, r + 1, dtype=np.float32)
+    ones = np.ones((2 * r + 1,), np.float32)
+    return _sep_filter(img, ramp, ones), _sep_filter(img, ones, ramp)
+
+
+def compute_orientations(img: torch.Tensor, uv: torch.Tensor,
+                         radius: int = PATCH_R) -> torch.Tensor:
+    """Per-keypoint patch orientation (K,) radians."""
+    m10, m01 = orientation_map(img, radius=radius)
+    xi = uv[:, 0].to(torch.int32).long()
+    yi = uv[:, 1].to(torch.int32).long()
+    return torch.atan2(_gather2d(m01, yi, xi), _gather2d(m10, yi, xi))
+
+
+# ---------------------------------------------------------------------------
+# rotated BRIEF
+
+
+def brief_pattern(bits: int = BRIEF_BITS, radius: int = PATCH_R,
+                  seed: int = 42) -> np.ndarray:
+    """(bits, 4) sampling pairs [x1, y1, x2, y2], Gaussian(0, r/5)^2
+    clipped to the patch, from a fixed seed (the reference's pattern,
+    bit for bit)."""
+    rng = np.random.default_rng(seed)
+    p = rng.normal(0.0, radius / 5.0, size=(bits, 4))
+    return np.clip(p, -(radius - 2), radius - 2).astype(np.float32)
+
+
+_PATTERN = brief_pattern()
+_PATTERNS: Dict[torch.device, torch.Tensor] = {}
+
+
+def pattern_on(device: torch.device) -> torch.Tensor:
+    """The (256, 4) pattern as a float32 tensor on ``device``, copied
+    there once (a copy per call would wait for the card)."""
+    pat = _PATTERNS.get(device)
+    if pat is None:
+        pat = _PATTERNS[device] = torch.as_tensor(_PATTERN, device=device)
+    return pat
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(K, 32*DESC_WORDS) bool -> (K, DESC_WORDS) int32 words, bit j of
+    word w = bits[32w + j].  Packed in int64 and masked to 32 bits, so
+    bit 31 lands as the int32 sign bit."""
+    K = bits.shape[0]
+    w = bits.reshape(K, DESC_WORDS, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    v = torch.sum(w << shifts, dim=-1) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def brief_from_rotation(img_blur: torch.Tensor, uv: torch.Tensor,
+                        ca: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """Rotated BRIEF given cos/sin of the keypoint angles: the plain
+    version of the BRIEF kernel.  Endpoints are
+    ``round(c + (px*ca - py*sa))`` (round half to even), clamped into
+    the image, sampled nearest; bit = a < b."""
+    pat = pattern_on(img_blur.device)
+    x1 = pat[None, :, 0] * ca[:, None] - pat[None, :, 1] * sa[:, None]
+    y1 = pat[None, :, 0] * sa[:, None] + pat[None, :, 1] * ca[:, None]
+    x2 = pat[None, :, 2] * ca[:, None] - pat[None, :, 3] * sa[:, None]
+    y2 = pat[None, :, 2] * sa[:, None] + pat[None, :, 3] * ca[:, None]
+    cx = uv[:, 0:1]
+    cy = uv[:, 1:2]
+    xs = torch.cat([cx + x1, cx + x2], dim=1)       # (K, 2B)
+    ys = torch.cat([cy + y1, cy + y2], dim=1)
+    H, W = img_blur.shape
+    xi = torch.round(xs).to(torch.int32).clamp(0, W - 1).long()
+    yi = torch.round(ys).to(torch.int32).clamp(0, H - 1).long()
+    s = img_blur.reshape(-1)[yi * W + xi]
+    B = pat.shape[0]
+    return pack_bits(s[:, :B] < s[:, B:])
+
+
+def brief_descriptors(img_blur: torch.Tensor, uv: torch.Tensor,
+                      angle: torch.Tensor) -> torch.Tensor:
+    """Rotated BRIEF from the blurred image -> (K, DESC_WORDS) int32."""
+    return brief_from_rotation(img_blur, uv, torch.cos(angle),
+                               torch.sin(angle))
+
+
+# ---------------------------------------------------------------------------
+# full extraction
+
+
+def extract_features(img: torch.Tensor, max_kps: int = 512,
+                     threshold: float = 0.06,
+                     use_kernels: bool = True) -> Features:
+    """Single-scale ORB-style extraction of one (H, W) float32 image.
+
+    detect (FAST + NMS) -> select top-K -> orient (centroid) -> describe
+    (rotated BRIEF on the blurred image).  ``use_kernels`` routes the
+    detector and the BRIEF sampler through the CUDA kernels (on CPU
+    tensors those wrappers take the plain versions); False runs the
+    plain PyTorch versions on any device.
+    """
+    if use_kernels:
+        from gslam_tpu_torch.ops.cuda.fastnms import fast_nms_raw
+
+        score, raw = fast_nms_raw(img, threshold=threshold)
+    else:
+        raw = fast_score(img, threshold)
+        score = nms(raw)
+    uv, val, valid, count = select_keypoints(score, max_kps=max_kps,
+                                             raw_score=raw)
+    angle = compute_orientations(img, uv)
+    blur = gaussian_blur(img, sigma=2.0)
+    if use_kernels:
+        from gslam_tpu_torch.ops.cuda.brief import brief
+
+        desc = brief(blur, uv, torch.cos(angle), torch.sin(angle))
+    else:
+        desc = brief_descriptors(blur, uv, angle)
+    desc = torch.where(valid[:, None], desc, desc.new_zeros(()))
+    return Features(uv=uv, score=val,
+                    angle=torch.where(valid, angle, angle.new_zeros(())),
+                    desc=desc, valid=valid, count=count)
