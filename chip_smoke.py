@@ -2,25 +2,34 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero):
+Phases (any failure raises and exits non-zero; each prints its seconds):
 
-1. print the card's name and power limit; build the three CUDA kernels
+1. print the card's name and power limit; build the five CUDA sources
    (``gslam_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel) and
-   print the build time and each kernel's register / shared-memory use;
-2. hold each kernel against its plain PyTorch version on the card, at
-   the shapes the tracking step gives it (480 x 640 image, K = 512
-   keypoints, a 2048-entry map slab): FAST+NMS allclose at 1e-5 with the
-   same NMS support, BRIEF bit-equal on valid keypoints, the matcher
-   with equal best / second / idx / back;
-3. drive the tracking step ``track_forward`` once through the kernels
-   (launch counters set to 0 just before, read just after), check that
-   it recovers the example's identity pose and enough inliers, and that
-   the plain path on the card agrees with it;
-4. time the step (ms/frame, frames/s, a split by stage, the device busy
-   share from torch.profiler) and each kernel beside its plain version
-   (device time: CUDA events around replays of a CUDA graph of many
-   calls, after warm-up);
-5. print the ``kernels`` JSON line, then the device JSON as the last
+   print each kernel's register / shared-memory use;
+2. the tracking step ``track_forward`` (480 x 640 image, K = 512
+   keypoints, a 2048-entry map slab): hold B1 FAST+NMS, B2 BRIEF and B3
+   matcher against their plain versions, drive the step once through
+   the kernels (launch counters set to 0 just before, read just after),
+   check the example's identity pose and the plain path, time it;
+3. hold B4 (gated matcher, N = 2048 map rows against M = 512 keypoints
+   near their projections, gate 40 px), B5 (Schur reduction) and B6 (BA
+   cost) against their plain versions on the local-BA problem of
+   ``bench.py`` (C = 8, P = 1024, O = 8), and ``bundle_adjust`` with the
+   kernels against the plain LM for 6 iterations;
+4. drive ``KeyframeSLAM`` over the first 64 frames of the full-width
+   RGB-D sequence (480 x 640 ``ring_out``, 1200 points, textured, depth;
+   ``max_kps`` 512, ``local_map_size`` 2048, ``ba_points`` 1024,
+   ``ba_window`` 8, ``ba_iters`` 6, ``kf_max_gap`` 8, ``cap_frames``
+   64), launch counters around it: B1, B2, B4, B5 and B6 all launched,
+   >= 90% of frames tracked, >= 3 keyframes and local BA ran, and the
+   ATE within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run;
+5. time a second, warm SLAM run with the kernels and one with the plain
+   versions (ms/frame, frames/s, split by timer section), the device
+   busy share under torch.profiler, and every kernel's device time
+   (CUDA events around replays of a CUDA graph of many calls) beside
+   its plain version and its bound;
+6. print the ``kernels`` JSON line, then the device JSON as the last
    line.
 
 Needs a CUDA card and ``nvcc``; without a card it exits non-zero before
@@ -30,6 +39,7 @@ printing any result.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -41,16 +51,39 @@ from gslam_tpu_torch.estimation.pnp import (
     _p3p_grunert, pnp_reproj_error, refine_pose_gn,
 )
 from gslam_tpu_torch.estimation.ransac import run_ransac
+from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
+from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
+from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
 from gslam_tpu_torch.ops import frontend
-from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher
-from gslam_tpu_torch.ops.matching import hamming_top2, match_descriptors
+from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher, schur
+from gslam_tpu_torch.ops.matching import (
+    gate_squared, hamming_top2, hamming_top2_gated, match_descriptors,
+)
+from gslam_tpu_torch.opt import ba
 from gslam_tpu_torch.utils.platform import card_name_and_power_limit
 
 H, W, M, K, B = 480, 640, 2048, 512, 256
 DEVICE = "cuda"
 THRESH = 0.06
 PNP_THRESH = 2e-5
+
+# the full-width RGB-D sequence and configuration of bench.py:136-145,
+# tracked one frame per call (dispatch_batch 1)
+SLAM_FRAMES = 64
+SEQUENCE = dict(n_frames=192, n_points=1200, width=640, height=480,
+                motion="ring_out", depth=True, texture=True, radius=14.0,
+                world_extent=8.0, laps=1, noise=0.01)
+SLAM_CFG = dict(max_kps=512, fast_threshold=0.08, local_map_size=2048,
+                ba_points=1024, ba_window=8, ba_iters=6, ba_obs_per_point=8,
+                kf_max_gap=8, cap_frames=64, cap_points=16384,
+                cap_obs=65536, dispatch_batch=1)
+# ATE (m) of the JAX package's KeyframeSLAM (gslam_tpu, plain jnp path)
+# over the same 64 frames and configuration, computed on a CPU by
+# ``python tests/test_torch_slam.py --reference-ate``; an accuracy
+# figure, not a speed figure.  Gate of tests/test_slam_e2e.py:146.
+REF_ATE = 0.0869997888803482
+ATE_GATE = max(0.05, 2.0 * REF_ATE + 0.01)
 
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -63,8 +96,21 @@ KERNELS = {
                   replaces="gslam_tpu/ops/pallas/brief.py:148"),
     "matcher": dict(source="gslam_tpu_torch/csrc/matcher.cu",
                     replaces="gslam_tpu/ops/pallas/matcher.py:66"),
+    "gated_matcher": dict(source="gslam_tpu_torch/csrc/gated.cu",
+                          replaces="gslam_tpu/ops/pallas/matcher.py:137"),
+    "schur": dict(source="gslam_tpu_torch/csrc/schur.cu",
+                  replaces="gslam_tpu/ops/pallas/schur.py:292"),
+    "ba_cost": dict(source="gslam_tpu_torch/csrc/schur.cu",
+                    replaces="gslam_tpu/ops/pallas/schur.py:396"),
 }
-MODULES = {"fast_nms": fastnms, "brief": brief, "matcher": matcher}
+# (wrapper module, its launch counter) per kernel
+COUNTERS = {"fast_nms": (fastnms, "launches"), "brief": (brief, "launches"),
+            "matcher": (matcher, "launches"),
+            "gated_matcher": (matcher, "gated_launches"),
+            "schur": (schur, "schur_launches"),
+            "ba_cost": (schur, "cost_launches")}
+TRACK_PATH = ("fast_nms", "brief", "matcher")
+SLAM_PATH = ("fast_nms", "brief", "gated_matcher", "schur", "ba_cost")
 
 
 def log(*a) -> None:
@@ -123,16 +169,31 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def reset_counts() -> None:
-    for mod in MODULES.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def counts():
-    return {name: mod.launches for name, mod in MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr)
+            in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------------------
 # phases
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled (nested) function name:
+    ``_ZN12_GLOBAL__N_112gated_kernelEPKi...`` -> ``gated_kernel``."""
+    s = mangled[2:] if mangled.startswith("_Z") else ""
+    s = s[1:] if s.startswith("N") else s
+    names = []
+    while s[:1].isdigit():
+        digits = re.match(r"\d+", s).group()
+        n = int(digits)
+        names.append(s[len(digits):len(digits) + n])
+        s = s[len(digits) + n:]
+    return names[-1] if names else mangled
 
 
 def phase_build():
@@ -142,11 +203,21 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{len(build.SOURCES)} kernels")
+        f"{len(build.SOURCES)} sources")
     for name, text in logs.items():
+        entry = "?"
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = kernel_name(m.group(1))
+            if "registers" in line or "spill" in line \
+                    or "error" in line.lower():
+                log(f"  {name}.cu {entry}: "
+                    f"{line.split(':', 1)[-1].strip()}")
+    for C in (8, schur.MAX_CAMS):    # B5's scratch grows as C^3 P
+        n = schur._lib().gslam_schur_scratch(C, 1024)
+        log(f"  schur.cu scratch at C={C}, P=1024: {n} floats "
+            f"({n * 4 / 1e6:.6f} MB)")
 
 
 def phase_check(inputs):
@@ -218,8 +289,8 @@ def phase_main_path(inputs):
                              max_kps=K, ransac_b=B, device=DEVICE)
     torch.cuda.synchronize()
     launched = counts()
-    log(f"main path launches: {launched}")
-    if min(launched.values()) < 1:
+    log(f"track_forward path launches: {launched}")
+    if any(launched[k] < 1 for k in TRACK_PATH):
         raise AssertionError(f"a kernel of the path never ran: {launched}")
 
     T_np = T.cpu().numpy()
@@ -301,24 +372,13 @@ def phase_stages(inputs):
     }
 
 
-def phase_profile(inputs, frames: int = 10):
-    """Device busy share of the step: kernel time that torch.profiler
-    records over ``frames`` frames, over their wall time; and the
-    kernels that take the most of it."""
+def device_profile(step, frames: int, label: str):
+    """Device busy share of ``step()``: kernel time that torch.profiler
+    records over ``frames`` calls, over their wall time; and the kernels
+    that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    img, cam, xyz, desc, valid, _ = inputs
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(3)
-
-    def step():
-        return track_forward(img, cam, xyz, desc, valid, generator=gen,
-                             max_kps=K, ransac_b=B, device=DEVICE)
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -335,14 +395,15 @@ def phase_profile(inputs, frames: int = 10):
             n_kernels += 1
     busy_us = sum(by_name.values())
     if busy_us == 0:
-        log("profile: the profiler recorded no device time; device busy "
-            "share not measured")
+        log(f"profile {label}: the profiler recorded no device time; "
+            "device busy share not measured")
         return None
-    log(f"profile over {frames} frames: wall {wall_us / frames / 1e3:.3f} "
-        f"ms/frame, device busy {busy_us / frames / 1e3:.3f} ms/frame "
+    log(f"profile {label} over {frames} frames: wall "
+        f"{wall_us / frames / 1e3:.3f} ms/frame, device busy "
+        f"{busy_us / frames / 1e3:.3f} ms/frame "
         f"({100 * busy_us / wall_us:.1f}% busy), "
         f"{n_kernels / frames:.0f} device ops/frame")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {us / frames:9.1f} us/frame  {name[:90]}")
     return dict(wall_ms=wall_us / frames / 1e3,
                 busy_ms=busy_us / frames / 1e3,
@@ -350,8 +411,24 @@ def phase_profile(inputs, frames: int = 10):
                 device_ops_per_frame=n_kernels / frames)
 
 
+def phase_profile(inputs, frames: int = 10):
+    img, cam, xyz, desc, valid, _ = inputs
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+
+    def step():
+        return track_forward(img, cam, xyz, desc, valid, generator=gen,
+                             max_kps=K, ransac_b=B, device=DEVICE)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    return device_profile(step, frames, "track_forward")
+
+
 def phase_kernel_times(rec, launched):
-    """Kernel and plain times at the main-path shapes, with bounds."""
+    """B1, B2 and B3 kernel and plain times at the tracking step's
+    shapes, with bounds."""
     img, = rec["fast_nms"]["args"]
     blur, uv, ca, sa = rec["brief"]["args"]
     desc, valid, fdesc, kvalid = rec["matcher"]["args"]
@@ -383,10 +460,270 @@ def phase_kernel_times(rec, launched):
                                                         kvalid),
                     lambda: hamming_top2(desc, valid, fdesc, kvalid)),
     }
+    return time_kernels(calls, work, rec, launched)
+
+
+def gated_inputs():
+    """B4's main-path shape: N = 2048 map rows against M = 512
+    keypoints, each keypoint within a few pixels of a map row's
+    projection with a near copy of its descriptor (the tracking
+    matcher's situation), the rest random; about 10% of rows masked."""
+    rng = np.random.default_rng(7)
+    N, Mk = 2048, 512
+    uv_map = np.stack([rng.uniform(0, W, N), rng.uniform(0, H, N)],
+                      -1).astype(np.float32)
+    desc_map = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(
+        np.uint32)
+    perm = rng.permutation(N)[:Mk]
+    kp_uv = (uv_map[perm] + rng.normal(0, 3.0, (Mk, 2))).astype(np.float32)
+    kp_desc = desc_map[perm].copy()
+    kp_desc[:, 0] ^= np.uint32(1) << rng.integers(0, 32, Mk).astype(
+        np.uint32)
+    valid_map = rng.random(N) < 0.9
+    valid_kp = rng.random(Mk) < 0.95
+    return [torch.as_tensor(x, device=DEVICE) for x in (
+        desc_map.view(np.int32), valid_map, kp_desc.view(np.int32),
+        valid_kp, uv_map, kp_uv)]
+
+
+def bench_problem():
+    """The local-BA problem of bench.py:199-218 (C = 8 cameras, P = 1024
+    points, O = 8 observation slots), drawn in the same order."""
+    rng = np.random.default_rng(0)
+    C, P, O = 8, 1024, 8
+    X = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1.5, 1.5, P),
+                  rng.uniform(3, 9, P)], -1).astype(np.float32)
+    poses = np.tile(np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32), (C, 1))
+    poses[:, 0] = 0.1 * np.arange(C)
+    obs_cam = rng.integers(0, C, (P, O)).astype(np.int32)
+    pc = X[:, None] + poses[obs_cam][..., :3]
+    uv = (pc[..., :2] / pc[..., 2:3]).astype(np.float32)
+    uv += rng.normal(0, 5e-4, uv.shape).astype(np.float32)
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[0] = True
+    xyz = X + rng.normal(0, 0.01, X.shape).astype(np.float32)
+    fields = (poses, cam_fixed, xyz, np.zeros(P, bool), obs_cam, uv,
+              np.ones((P, O), bool), np.ones((P, O), np.float32))
+    return ba.BundleProblem(*(torch.as_tensor(x, device=DEVICE)
+                              for x in fields))
+
+
+def phase_check_slam_kernels():
+    """B4, B5 and B6 against their plain versions at the SLAM path's
+    shapes; bundle_adjust with the kernels against the plain LM."""
+    rec = {}
+    g_args = gated_inputs()
+    gate2 = gate_squared(SLAMConfig().gate_radius_px)
+    out_k = matcher.gated_top2_kernel(*g_args, gate2)
+    out_p = hamming_top2_gated(*g_args, gate2)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(out_k, out_p))
+    n_m = int((out_p[0] <= 64).sum())
+    log(f"B4 gated matcher: max_abs_err {err:.3g} over best/second/idx, "
+        f"{n_m} rows with a candidate within 64 bits")
+    if err != 0.0:
+        raise AssertionError("gated matcher kernel disagrees with plain")
+    rec["gated_matcher"] = dict(max_abs_err=err, args=(*g_args, gate2))
+
+    prob = bench_problem()
+    lam = torch.tensor(1e-3, device=DEVICE)
+    S1, b1, W1, Hi1, bp1 = schur.schur_reduce_kernel(prob, lam, 0.01)
+    S0, b0, W0, Hi0, bp0 = ba.schur_reduce(prob, lam, 0.01)
+    c1 = schur.ba_cost_kernel(prob, 0.01)
+    c0 = ba.ba_cost(prob, 0.01)
+    torch.cuda.synchronize()
+    # tests/test_pallas.py:180-191's tolerances, and rtol 1e-5 for B6
+    checks = [
+        ("S", S1, S0, 1e-4, 1e-4 * S0.abs().max().item()),
+        ("b", b1, b0, 0.0, 1e-4 * max(b0.abs().max().item(), 1e-6)),
+        ("W_e", W1.W_e, W0.W_e, 0.0, 1e-4),
+        ("Hpp_inv", Hi1, Hi0, 1e-3, 1e-3),
+        ("bp", bp1, bp0, 0.0, 1e-5),
+        ("cost", c1, c0, 1e-5, 0.0)]
+    errs = {}
+    for name, k, p, rtol, atol in checks:
+        errs[name] = (k - p).abs().max().item()
+        torch.testing.assert_close(k, p, rtol=rtol, atol=atol,
+                                   msg=f"B5/B6 {name} disagrees")
+    log("B5 schur / B6 cost vs plain (C=8, P=1024, O=8): max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    rec["schur"] = dict(max_abs_err=max(v for k, v in errs.items()
+                                        if k != "cost"),
+                        args=(prob, lam))
+    rec["ba_cost"] = dict(max_abs_err=errs["cost"], args=(prob,))
+
+    out_k, st_k = ba.bundle_adjust(prob, iters=6, use_kernels=True)
+    out_p, st_p = ba.bundle_adjust(prob, iters=6, use_kernels=False)
+    torch.cuda.synchronize()
+    log(f"bundle_adjust 6 iters: accepted kernels "
+        f"{st_k.accepted.tolist()} plain {st_p.accepted.tolist()}; cost "
+        f"{st_k.cost[0].item():.6g} -> {st_k.cost[-1].item():.6g} "
+        f"(plain -> {st_p.cost[-1].item():.6g}); pose diff "
+        f"{(out_k.cam_pose - out_p.cam_pose).abs().max().item():.3g}")
+    if not torch.equal(st_k.accepted, st_p.accepted):
+        raise AssertionError("LM with the kernels took other steps")
+    torch.testing.assert_close(st_k.cost, st_p.cost, rtol=1e-3, atol=0.0)
+    torch.testing.assert_close(out_k.cam_pose, out_p.cam_pose, rtol=0.0,
+                               atol=1e-4)
+    return rec
+
+
+def load_frames():
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**SEQUENCE)
+    ds.open("synth://")
+    frames = [ds.grab_frame() for _ in range(SLAM_FRAMES)]
+    log(f"sequence: {SLAM_FRAMES} frames {SEQUENCE['height']}x"
+        f"{SEQUENCE['width']} rendered in {time.perf_counter() - t0:.1f} s")
+    return ds.camera, frames
+
+
+def run_slam(camera, frames, use_kernels=True, seed=0):
+    """A fresh KeyframeSLAM over ``frames``; (slam, seconds)."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**SLAM_CFG,
+                                           use_kernels=use_kernels,
+                                           seed=seed), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr in frames:
+        slam.track(fr)
+    torch.cuda.synchronize()
+    return slam, time.perf_counter() - t0
+
+
+def phase_slam(camera, frames):
+    """The SLAM main path once through the kernels, counters around it;
+    tracking, keyframe, BA and ATE gates."""
+    reset_counts()
+    slam, secs = run_slam(camera, frames)
+    launched = counts()
+    log(f"KeyframeSLAM path launches over {len(frames)} frames: "
+        f"{launched} ({secs:.2f} s, first run)")
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the SLAM path never ran: "
+                             f"{missing}")
+    cfg = slam.cfg
+    tracked = sum(st["n_inliers"] >= cfg.min_track_inliers
+                  for st in slam.stats)
+    n_kf = slam._n_frames_host
+    ba_runs = slam.timer.stats().get("slam/local_ba", {}).get("count", 0)
+    ts = np.asarray([fr.timestamp for fr in frames])
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    pos = slam.positions()
+    m = evaluate_trajectory(ts, pos, ts, gt, with_scale=False)
+    log(f"SLAM: {tracked}/{len(frames)} frames tracked, {n_kf} keyframes, "
+        f"{ba_runs} local BA runs, ATE {m.ate_rmse:.6f} m (gate "
+        f"{ATE_GATE:.4f} m; JAX reference {REF_ATE:.6f} m), RPE "
+        f"{m.rpe_rmse:.6f} m; inliers "
+        f"{[st['n_inliers'] for st in slam.stats]}")
+    if not np.isfinite(pos).all() or pos.shape != (len(frames), 3):
+        raise AssertionError("trajectory not finite or of the wrong shape")
+    if tracked < 0.9 * len(frames):
+        raise AssertionError(f"only {tracked} of {len(frames)} frames "
+                             "tracked")
+    if n_kf < 3 or ba_runs < 1:
+        raise AssertionError(f"{n_kf} keyframes, {ba_runs} local BA runs")
+    if not m.ate_rmse <= ATE_GATE:
+        raise AssertionError(f"ATE {m.ate_rmse} m above {ATE_GATE} m")
+    return launched, dict(tracked=tracked, keyframes=n_kf,
+                          local_ba_runs=ba_runs, ate_m=m.ate_rmse,
+                          rpe_m=m.rpe_rmse, first_run_s=secs)
+
+
+def split_ms(slam, n):
+    """Wall ms per frame of each timer section, and the rest (host)."""
+    st = slam.timer.stats()
+    out = {k.split("/")[1]: v["total"] * 1e3 / n for k, v in st.items()}
+    return out
+
+
+def phase_slam_timing(camera, frames):
+    """Warm runs in turns (kernels, plain, kernels) and a profile."""
+    n = len(frames)
+    runs = {}
+    for label, uk in (("kernels", True), ("plain", False),
+                      ("kernels2", True)):
+        slam, secs = run_slam(camera, frames, use_kernels=uk)
+        runs[label] = (secs * 1e3 / n, split_ms(slam, n))
+        log(f"SLAM {label}: {secs * 1e3 / n:.3f} ms/frame "
+            f"({n / secs:.2f} frames/s); split ms/frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in runs[label][1].items())
+            + f"; rest (host glue) "
+              f"{secs * 1e3 / n - sum(runs[label][1].values()):.3f}")
+    # device busy share over the first 24 frames of a fresh run (the
+    # bootstrap keyframe, 23 tracked frames, two keyframes with BA)
+    n_prof = min(24, n)
+    slam = KeyframeSLAM(camera, SLAMConfig(**SLAM_CFG), device=DEVICE)
+    it = iter(frames[:n_prof])
+    prof = device_profile(lambda: slam.track(next(it)), n_prof,
+                          "KeyframeSLAM")
+    best = min(runs["kernels"][0], runs["kernels2"][0])
+    return dict(ms_per_frame=best, frames_per_s=1e3 / best,
+                ms_per_frame_runs=[runs["kernels"][0], runs["kernels2"][0]],
+                plain_ms_per_frame=runs["plain"][0],
+                split_ms_per_frame=runs["kernels"][1],
+                plain_split_ms_per_frame=runs["plain"][1], profile=prof)
+
+
+def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
+    """B4, B5 and B6 device times beside their plain versions, at the
+    SLAM path's shapes, with bounds from this run's inputs."""
+    a_map, v_map, a_kp, v_kp, uv_map, uv_kp, gate2 = \
+        rec["gated_matcher"]["args"]
+    prob, lam = rec["schur"]["args"]
+    N, Mk = a_map.shape[0], a_kp.shape[0]
+    C = prob.cam_pose.shape[0]
+    P, O = prob.obs_cam.shape
+    n_obs = int(prob.obs_valid.sum())
+    # distinct cameras per point: the Schur correction's camera pairs
+    cams = torch.zeros((P, C), dtype=torch.bool, device=DEVICE)
+    cams[torch.arange(P, device=DEVICE)[:, None].expand(P, O),
+         prob.obs_cam.long()] = prob.obs_valid
+    pairs = int((cams.sum(1) ** 2).sum())
+    # B4: per pair the gate (2 subtractions, 2 products, 1 sum, 1
+    # compare); per pair inside the gate 8 xor + 8 popc + 8 sums and 3
+    # top-2 compares
+    d2 = ((uv_map[:, None] - uv_kp[None]) ** 2).sum(-1)
+    n_gated = int((v_map[:, None] & v_kp[None] & (d2 <= gate2)).sum())
+    gated_work = ((N + Mk) * (32 + 8 + 1) + N * 12,
+                  N * Mk * 6 + n_gated * 27)
+    # B5 per observation: residual and weight (34), Jacobians (30), Hpp
+    # and bp (45), W_e (72), Y = W_e Hpp^-1 (90), Hcc (84) and b (40);
+    # per point the 3x3 inverse (40); per camera pair of a point the
+    # 6x6 block of U V^T (216)
+    schur_bytes = (C * 16 * 4 + P * 16 + P * O * 16             # inputs
+                   + P * 48 + P * O * 72 + (36 * C * C + 42 * C) * 4)
+    schur_work = (schur_bytes, n_obs * 395 + P * 40 + pairs * 216)
+    # B6 per observation: residual, norm and Huber weight, w e^2 (40)
+    cost_work = (C * 64 + P * 12 + P * O * 16 + 4, n_obs * 40)
+    work = {"gated_matcher": gated_work, "schur": schur_work,
+            "ba_cost": cost_work}
+    calls = {
+        "gated_matcher": (
+            lambda: matcher.gated_top2_kernel(a_map, v_map, a_kp, v_kp,
+                                              uv_map, uv_kp, gate2),
+            lambda: hamming_top2_gated(a_map, v_map, a_kp, v_kp, uv_map,
+                                       uv_kp, gate2)),
+        "schur": (lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
+                  lambda: ba.schur_reduce(prob, lam, 0.01)),
+        "ba_cost": (lambda: schur.ba_cost_kernel(prob, 0.01),
+                    lambda: ba.ba_cost(prob, 0.01)),
+    }
+    per = {"gated_matcher": f"{launched['gated_matcher'] / n_frames:.3f} "
+           "per frame",
+           "schur": f"{launched['schur'] / ba_runs:.2f} per local BA",
+           "ba_cost": f"{launched['ba_cost'] / ba_runs:.2f} per local BA"}
+    return time_kernels(calls, work, rec, launched, per)
+
+
+def time_kernels(calls, work, rec, launched, per=None):
+    """Device time of each kernel and its plain version (CUDA graph
+    replay, in turns: plain, kernel, kernel, plain) and the kernel's
+    eager call from Python; the kernels-line records."""
     out = []
     for name, (kfn, pfn) in calls.items():
-        # device time (CUDA graph replay), in turns: plain, kernel,
-        # kernel, plain; then the kernel's eager call from Python
         p1 = graph_ms(pfn)
         k1 = graph_ms(kfn)
         k2 = graph_ms(kfn)
@@ -401,7 +738,8 @@ def phase_kernel_times(rec, launched):
         log(f"{name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
             f"{p2:.4f} ms (device, graph replay); eager call "
             f"{eager:.4f} ms; bound {b_ms:.5f} ms ({b_by}; "
-            f"{work[name][0]} bytes, {work[name][1]} ops)")
+            f"{work[name][0]} bytes, {work[name][1]} ops); launches "
+            f"{launched[name]}" + (f" ({per[name]})" if per else ""))
     return out
 
 
@@ -412,19 +750,22 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
 
+    def phase(name, t0):
+        log(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
+        return time.perf_counter()
+
+    t = time.perf_counter()
     phase_build()
-    t0 = time.perf_counter()
+    t = phase("build", t)
     inputs = example_inputs(H, W, M, K, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"example_inputs {H}x{W}, M={M}, K={K}: "
-        f"{time.perf_counter() - t0:.2f} s")
     rec = phase_check(inputs)
-    launched = phase_main_path(inputs)
-
-    ms_k = time_frame(inputs, use_kernels=True)
-    ms_p = time_frame(inputs, use_kernels=False)
-    ms_k2 = time_frame(inputs, use_kernels=True)
+    launched_track = phase_main_path(inputs)
+    ms_k = time_frame(inputs, use_kernels=True, reps=20)
+    ms_p = time_frame(inputs, use_kernels=False, reps=20)
+    ms_k2 = time_frame(inputs, use_kernels=True, reps=20)
     log(f"track_forward {H}x{W} M={M} K={K} B={B}: kernels "
         f"{ms_k:.3f}/{ms_k2:.3f} ms/frame "
         f"({1e3 / min(ms_k, ms_k2):.1f} frames/s), plain path "
@@ -433,13 +774,34 @@ def main() -> int:
     log("stages (device ms): " + ", ".join(f"{k} {v:.3f}"
                                           for k, v in stages.items()))
     prof = phase_profile(inputs)
+    t = phase("track_forward", t)
+
+    rec.update(phase_check_slam_kernels())
+    t = phase("check B4-B6", t)
+    camera, frames = load_frames()
+    launched_slam, slam_checks = phase_slam(camera, frames)
+    t = phase("KeyframeSLAM main path", t)
+    slam_times = phase_slam_timing(camera, frames)
+    t = phase("KeyframeSLAM timing", t)
+
+    # B1, B2 report their launches on the SLAM path, B3 on track_forward
+    launched = {k: (launched_track[k] if k == "matcher"
+                    else launched_slam[k]) for k in KERNELS}
     kern = phase_kernel_times(rec, launched)
+    kern += phase_slam_kernel_times(rec, launched, len(frames),
+                                    slam_checks["local_ba_runs"])
+    t = phase("kernel times", t)
     log(json.dumps({"slice": "track_forward", "shape": [H, W],
                     "map": M, "kps": K, "ransac_b": B,
                     "ms_per_frame": min(ms_k, ms_k2),
                     "frames_per_s": 1e3 / min(ms_k, ms_k2),
                     "plain_ms_per_frame": ms_p, "stages_ms": stages,
-                    "profile": prof}))
+                    "profile": prof, "launches": launched_track}))
+    log(json.dumps({"slice": "keyframe_slam", "frames": len(frames),
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    **slam_checks, **slam_times,
+                    "launches": launched_slam}))
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card_name_and_power_limit())
     log(json.dumps({"kernels": kern}))
     log(json.dumps({"ok": True, "device": {

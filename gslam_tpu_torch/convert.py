@@ -1,10 +1,13 @@
 """State carried between the JAX package and the port, through numpy.
 
-The tracking step has no weights; its state is the local-map slab and
-the camera.  These functions turn the JAX package's arrays (as numpy)
-into this package's tensors and back, so that both compute on the same
-map.  Descriptors are uint32 words in numpy and int32 tensors with the
-same bit pattern here (torch's uint32 supports few operations).
+The system has no weights; its state is the map (the local-map slab of
+the tracking step, the whole ``MapArena`` of the SLAM loop, a BA
+problem) and the camera.  These functions turn the JAX package's arrays
+(as numpy) into this package's tensors and back, so that both compute
+on the same map; ``arena_from_numpy`` / ``arena_to_numpy`` are those of
+:mod:`gslam_tpu_torch.map.arena`.  Descriptors are uint32 words in
+numpy and int32 tensors with the same bit pattern here (torch's uint32
+supports few operations).
 """
 
 from __future__ import annotations
@@ -14,8 +17,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from gslam_tpu_torch.map.arena import (  # noqa: F401  (the map's carriers)
+    arena_from_numpy, arena_to_numpy,
+)
 from gslam_tpu_torch.ops.frontend import DESC_WORDS, Features
 from gslam_tpu_torch.ops.matching import Matches
+from gslam_tpu_torch.opt.ba import BundleProblem
 from gslam_tpu_torch.utils.platform import require_device
 
 
@@ -71,3 +78,18 @@ def features_to_numpy(f: Features) -> Dict[str, np.ndarray]:
 def matches_to_numpy(m: Matches) -> Dict[str, np.ndarray]:
     """Matches -> dict of numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in m._asdict().items()}
+
+
+def bundle_problem_from_numpy(fields, device="cuda"):
+    """A BA problem as numpy (a ``BundleProblem``-shaped tuple or a dict
+    of its field names) -> :class:`~gslam_tpu_torch.opt.ba.BundleProblem`
+    on ``device``."""
+    dev = require_device(device)
+    if not isinstance(fields, dict):
+        fields = dict(zip(BundleProblem._fields, fields))
+    dtypes = dict(cam_pose=np.float32, cam_fixed=bool, point_xyz=np.float32,
+                  point_fixed=bool, obs_cam=np.int32, obs_uv=np.float32,
+                  obs_valid=bool, obs_weight=np.float32)
+    return BundleProblem(**{
+        k: torch.from_numpy(np.array(fields[k], dtype=dtypes[k])).to(dev)
+        for k in BundleProblem._fields})

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from gslam_tpu_torch.ops.frontend import DESC_WORDS
@@ -94,3 +95,47 @@ def match_descriptors(desc_a: torch.Tensor, valid_a: torch.Tensor,
                                            valid_b),
                              valid_a, max_dist=max_dist, ratio=ratio,
                              mutual=mutual)
+
+
+def gate_squared(gate_radius: float) -> float:
+    """The squared gate radius as the reference forms it: the float32
+    radius squared in float32."""
+    g = np.float32(gate_radius)
+    return float(g * g)
+
+
+def hamming_top2_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                       desc_b: torch.Tensor, valid_b: torch.Tensor,
+                       uv_a: torch.Tensor, uv_b: torch.Tensor,
+                       gate2: float) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(best, second, idx) per row of the (N, M) distance matrix masked
+    by validity and by the squared pixel distance ``gate2``: the plain
+    version of the gated matcher kernel (B4).  Ties go to the lowest
+    column; ``second`` equals ``best`` when two columns tie."""
+    D = hamming_matrix(desc_a, desc_b)
+    d2 = ((uv_a[:, None, :] - uv_b[None, :, :]) ** 2).sum(-1)
+    ok = valid_a[:, None] & valid_b[None, :] & (d2 <= gate2)
+    D = torch.where(ok, D, D.new_full((), INF_DIST))
+    best, idx = torch.min(D, dim=1)       # first minimum on ties
+    cols = torch.arange(D.shape[1], device=D.device)
+    second = torch.where(cols[None, :] == idx[:, None],
+                         D.new_full((), INF_DIST), D).amin(1)
+    return best, second, idx.to(torch.int32)
+
+
+def match_descriptors_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                            desc_b: torch.Tensor, valid_b: torch.Tensor,
+                            uv_a: torch.Tensor, uv_b: torch.Tensor,
+                            gate_radius: float, max_dist: float = 64.0,
+                            ratio: float = 0.9) -> Matches:
+    """Projection-gated matching (search by projection): pairs are
+    candidates only within ``gate_radius`` pixels (uv_a: projected map
+    points, uv_b: keypoints); ratio and ``max_dist`` tests, no mutual
+    check.  Counterpart of ``match_descriptors_gated`` in the JAX
+    package."""
+    best, second, idx = hamming_top2_gated(
+        desc_a, valid_a, desc_b, valid_b, uv_a, uv_b,
+        gate_squared(gate_radius))
+    return matches_from_top2(best, second, idx, None, valid_a,
+                             max_dist=max_dist, ratio=ratio, mutual=False)

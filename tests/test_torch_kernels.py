@@ -141,3 +141,159 @@ def test_wrappers_reject_bad_inputs(dev):
         matcher.hamming_top2_kernel(d.long(), v, d, v)
     with pytest.raises(ValueError):
         matcher.hamming_top2_kernel(d, v.cpu(), d, v)
+
+
+# ---------------------------------------------------------------------------
+# B4 gated matcher, B5 Schur reduction, B6 BA cost
+
+
+def gated_case(rng, N, M, gate):
+    a = random_desc(rng, N)
+    b = random_desc(rng, M)
+    k = min(N, M) // 2
+    b[:k] = a[:k]
+    b[:k, 0] ^= 7
+    b[k + 1] = b[k]                      # tied keypoints
+    va = rng.uniform(size=N) > 0.1
+    vb = rng.uniform(size=M) > 0.1
+    uv_a = rng.uniform(0, 200, (N, 2)).astype(np.float32)
+    uv_b = rng.uniform(0, 200, (M, 2)).astype(np.float32)
+    uv_b[:k] = uv_a[:k] + rng.uniform(-0.6, 0.6, (k, 2)).astype(
+        np.float32) * gate
+    uv_b[k] = uv_b[k + 1] = uv_a[0]
+    if N > 2:
+        uv_b[2] = uv_a[2] + np.asarray([gate, 0], np.float32)   # on the gate
+    return a, va, b, vb, uv_a, uv_b
+
+
+@pytest.mark.parametrize("N,M,gate", [(2048, 512, 40.0), (100, 700, 25.0),
+                                      (33, 6, 40.0), (1, 3, 10.0)])
+def test_gated_kernel_matches_plain(dev, N, M, gate):
+    rng = np.random.default_rng(5)
+    args = [torch.as_tensor(x, device=dev)
+            for x in gated_case(rng, N, M, gate)]
+    g2 = matching.gate_squared(gate)
+    before = matcher.gated_launches
+    out_k = matcher.gated_top2_kernel(*args, g2)
+    out_p = matching.hamming_top2_gated(*args, g2)
+    torch.cuda.synchronize()
+    assert matcher.gated_launches == before + 1
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p.to(k.dtype))
+    m_k = matcher.match_hamming_gated(*args, gate, ratio=0.85)
+    m_p = matching.match_descriptors_gated(*args, gate, ratio=0.85)
+    assert torch.equal(m_k.idx, m_p.idx) and torch.equal(m_k.valid,
+                                                         m_p.valid)
+
+
+def ba_problem(rng, C, P, O, dev):
+    """tests/test_pallas.py's problem, in numpy: noisy projections, a
+    fixed camera and point, invalid slots, a point behind every camera,
+    non-uniform weights."""
+    from gslam_tpu_torch.core.se3 import se3_apply
+    from gslam_tpu_torch.opt.ba import BundleProblem
+
+    cam_t = rng.normal(0, 0.2, (C, 3))
+    q = np.tile([1.0, 0, 0, 0], (C, 1)) + rng.normal(0, 0.05, (C, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cam = torch.tensor(np.concatenate([cam_t, q], 1), dtype=torch.float32)
+    pts = rng.normal(0, 1.0, (P, 3)).astype(np.float32)
+    pts[:, 2] += 5
+    pts[3] = [0, 0, -5]
+    obs_cam = rng.integers(0, C, (P, O)).astype(np.int32)
+    pc = se3_apply(cam[torch.tensor(obs_cam).long()],
+                   torch.tensor(pts)[:, None]).numpy()
+    z = np.maximum(pc[..., 2], 1e-3)
+    uv = (pc[..., :2] / z[..., None]
+          + rng.normal(0, 2e-3, (P, O, 2))).astype(np.float32)
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[0] = True
+    pt_fixed = np.zeros(P, bool)
+    pt_fixed[min(7, P - 1)] = True
+    fields = (cam.numpy(), cam_fixed, pts, pt_fixed, obs_cam, uv,
+              rng.random((P, O)) < 0.85,
+              (rng.random((P, O)) + 0.5).astype(np.float32))
+    return BundleProblem(*(torch.as_tensor(x, device=dev) for x in fields))
+
+
+@pytest.mark.parametrize("C,P,O", [(8, 1024, 8), (3, 137, 5), (32, 300, 4),
+                                   (1, 5, 1)])
+def test_schur_and_cost_kernels_match_plain(dev, C, P, O):
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt import ba
+
+    prob = ba_problem(np.random.default_rng(C + P), C, P, O, dev)
+    lam = torch.tensor(1e-3, device=dev)
+    b5, b6 = schur.schur_launches, schur.cost_launches
+    out_k = schur.schur_reduce_kernel(prob, lam, 0.01)
+    cost_k = schur.ba_cost_kernel(prob, 0.01)
+    out_p = ba.schur_reduce(prob, lam, 0.01)
+    cost_p = ba.ba_cost(prob, 0.01)
+    torch.cuda.synchronize()
+    assert (schur.schur_launches, schur.cost_launches) == (b5 + 1, b6 + 1)
+    (S1, b1, W1, Hi1, bp1), (S0, b0, W0, Hi0, bp0) = out_k, out_p
+    # tests/test_pallas.py's tolerances for the Schur kernel
+    torch.testing.assert_close(S1, S0, rtol=1e-4,
+                               atol=1e-4 * S0.abs().max().item())
+    torch.testing.assert_close(b1, b0, rtol=0, atol=1e-4 * max(
+        b0.abs().max().item(), 1e-6))
+    torch.testing.assert_close(W1.W_e, W0.W_e, rtol=0, atol=1e-4)
+    torch.testing.assert_close(Hi1, Hi0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(bp1, bp0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(cost_k, cost_p, rtol=1e-5, atol=0)
+    # the same inputs give the same bits: no float atomics
+    again = schur.schur_reduce_kernel(prob, lam, 0.01)
+    assert torch.equal(again[0], S1) and torch.equal(again[1], b1)
+
+
+def test_schur_and_cost_kernels_clamp_pad_camera_index(dev):
+    """Invalid slots whose camera index is -1 or C (pads) read inside the
+    camera table: the kernels give what the plain version gives with
+    those pads set to camera 0."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt import ba
+
+    C, P, O = 4, 64, 3
+    prob = ba_problem(np.random.default_rng(5), C, P, O, dev)
+    pad = torch.zeros((P, O), dtype=torch.bool, device=dev)
+    pad[::3, 1] = True
+    valid = prob.obs_valid & ~pad
+    padded = prob._replace(obs_valid=valid, obs_cam=torch.where(
+        pad, torch.where(torch.arange(P, device=dev)[:, None] % 2 == 0,
+                         -1, C), prob.obs_cam).to(torch.int32))
+    plain = prob._replace(obs_valid=valid, obs_cam=torch.where(
+        pad, 0, prob.obs_cam).to(torch.int32))
+    lam = torch.tensor(1e-3, device=dev)
+    out_k = schur.schur_reduce_kernel(padded, lam, 0.01)
+    cost_k = schur.ba_cost_kernel(padded, 0.01)
+    out_p = ba.schur_reduce(plain, lam, 0.01)
+    cost_p = ba.ba_cost(plain, 0.01)
+    (S1, b1, W1, Hi1, bp1), (S0, b0, W0, Hi0, bp0) = out_k, out_p
+    torch.testing.assert_close(S1, S0, rtol=1e-4,
+                               atol=1e-4 * S0.abs().max().item())
+    torch.testing.assert_close(b1, b0, rtol=0, atol=1e-4 * max(
+        b0.abs().max().item(), 1e-6))
+    torch.testing.assert_close(W1.W_e, W0.W_e, rtol=0, atol=1e-4)
+    torch.testing.assert_close(Hi1, Hi0, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(bp1, bp0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(cost_k, cost_p, rtol=1e-5, atol=0)
+
+
+def test_bundle_adjust_kernels_follow_plain_lm_path(dev):
+    from gslam_tpu_torch.opt import ba
+
+    prob = ba_problem(np.random.default_rng(0), 8, 1024, 8, dev)
+    out_k, st_k = ba.bundle_adjust(prob, iters=6, use_kernels=True)
+    out_p, st_p = ba.bundle_adjust(prob, iters=6, use_kernels=False)
+    assert torch.equal(st_k.accepted, st_p.accepted)
+    torch.testing.assert_close(st_k.cost, st_p.cost, rtol=1e-3, atol=0)
+    torch.testing.assert_close(out_k.cam_pose, out_p.cam_pose, rtol=0,
+                               atol=1e-4)
+
+
+def test_schur_wrapper_rejects_too_many_cameras(dev):
+    from gslam_tpu_torch.ops.cuda import schur
+
+    prob = ba_problem(np.random.default_rng(1), 33, 40, 2, dev)
+    with pytest.raises(ValueError, match="cameras"):
+        schur.schur_reduce_kernel(prob, torch.tensor(1e-3, device=dev))
