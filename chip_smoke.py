@@ -4,7 +4,7 @@
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 
-1. print the card's name and power limit; build the five CUDA sources
+1. print the card's name and power limit; build the six CUDA sources
    (``gslam_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel) and
    print each kernel's register / shared-memory use;
 2. the tracking step ``track_forward`` (480 x 640 image, K = 512
@@ -29,7 +29,22 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    busy share under torch.profiler, and every kernel's device time
    (CUDA events around replays of a CUDA graph of many calls) beside
    its plain version and its bound;
-6. print the ``kernels`` JSON line, then the device JSON as the last
+6. hold B7 (BoW tree descent) against its plain version, word for
+   word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
+   and at k = 8, L = 4 (4681 nodes; N = 512, and an odd N with invalid
+   rows), on vocabularies trained here from seeded random descriptors;
+7. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
+   of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
+   frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
+   6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
+   ``ba_window`` 4, ``cap_frames`` 256, stock loop-closer settings),
+   frames rendered one at a time, launch counters around the run: B1,
+   B2, B4, B5, B6 and B7 all launched, >= 100 keyframes, no arena
+   overflow, >= 2 loop closures, ATE of the corrected trajectory under
+   1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
+   feed frames from the far side of the ring and require BoW
+   relocalization to bring the pose back through B7;
+8. print the ``kernels`` JSON line, then the device JSON as the last
    line.
 
 Needs a CUDA card and ``nvcc``; without a card it exits non-zero before
@@ -55,8 +70,9 @@ from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
 from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
-from gslam_tpu_torch.ops import frontend
+from gslam_tpu_torch.ops import frontend, vocab
 from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher, schur
+from gslam_tpu_torch.ops.cuda import vocab as vocab_k
 from gslam_tpu_torch.ops.matching import (
     gate_squared, hamming_top2, hamming_top2_gated, match_descriptors,
 )
@@ -85,6 +101,24 @@ SLAM_CFG = dict(max_kps=512, fast_threshold=0.08, local_map_size=2048,
 REF_ATE = 0.0869997888803482
 ATE_GATE = max(0.05, 2.0 * REF_ATE + 0.01)
 
+# the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
+# package's own loop-closure configuration), stock loop-closer settings
+LOOP_SEQUENCE = dict(n_frames=1024, n_points=1200, width=640, height=480,
+                     motion="ring_out", depth=True, texture=True,
+                     radius=14.0, world_extent=8.0, laps=2, noise=0.01)
+LOOP_CFG = dict(max_kps=384, fast_threshold=0.08, ba_window=4,
+                ba_points=384, ba_iters=2, cap_frames=256, cap_points=16384,
+                cap_obs=65536, local_map_size=768, kf_max_gap=8)
+LOOP_VOC = dict(k=6, L=2, frames=6, max_kps=256, threshold=0.08, seed=0)
+# gates of that test
+LOOP_MIN_KEYFRAMES, LOOP_MIN_CLOSURES, LOOP_ATE_GATE = 100, 2, 1.5
+# the kidnap: frames from the far side of the ring (a quarter of the
+# sequence = half of lap 1), accepted within this distance of where the
+# corrected trajectory places that frame (the ring's diameter is 28 m)
+KIDNAP_FRAME, KIDNAP_TRIES, KIDNAP_TOL_M = 256, 5, 3.0
+# B7 at the top of the JAX package's contract (4681 nodes, 4096 words)
+VOC_BIG = dict(k=8, L=4)
+
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # outside the tensor cores
@@ -102,15 +136,19 @@ KERNELS = {
                   replaces="gslam_tpu/ops/pallas/schur.py:292"),
     "ba_cost": dict(source="gslam_tpu_torch/csrc/schur.cu",
                     replaces="gslam_tpu/ops/pallas/schur.py:396"),
+    "bow_descent": dict(source="gslam_tpu_torch/csrc/vocab.cu",
+                        replaces="gslam_tpu/ops/pallas/vocab.py:69"),
 }
 # (wrapper module, its launch counter) per kernel
 COUNTERS = {"fast_nms": (fastnms, "launches"), "brief": (brief, "launches"),
             "matcher": (matcher, "launches"),
             "gated_matcher": (matcher, "gated_launches"),
             "schur": (schur, "schur_launches"),
-            "ba_cost": (schur, "cost_launches")}
+            "ba_cost": (schur, "cost_launches"),
+            "bow_descent": (vocab_k, "launches")}
 TRACK_PATH = ("fast_nms", "brief", "matcher")
 SLAM_PATH = ("fast_nms", "brief", "gated_matcher", "schur", "ba_cost")
+LOOP_PATH = SLAM_PATH + ("bow_descent",)
 
 
 def log(*a) -> None:
@@ -718,6 +756,220 @@ def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     return time_kernels(calls, work, rec, launched, per)
 
 
+def random_words(rng, n):
+    """(n, 8) random descriptors as uint32 words."""
+    return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(
+        np.uint32)
+
+
+def descent_case(voc, N, seed, p_invalid=0.0):
+    """B7 inputs on the card: N descriptors, a third of them node
+    centres of ``voc`` with a few bits flipped (they descend to known
+    words), the rest random; a share ``p_invalid`` masked."""
+    rng = np.random.default_rng(seed)
+    nodes = vocab.vocabulary_to_numpy(voc)["node_desc"]
+    desc = random_words(rng, N)
+    near = rng.integers(1, nodes.shape[0], N // 3)
+    desc[:N // 3] = nodes[near] ^ (np.uint32(1) << rng.integers(
+        0, 32, (N // 3, 8)).astype(np.uint32))
+    valid = rng.random(N) >= p_invalid
+    return (torch.as_tensor(desc.view(np.int32), device=DEVICE),
+            torch.as_tensor(valid, device=DEVICE))
+
+
+def phase_check_vocab():
+    """B7 against its plain version, word for word, at the loop path's
+    shape and at the top of the JAX package's table contract."""
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    voc_loop = vocab.train_vocabulary(
+        random_words(rng, 4000), k=LOOP_VOC["k"], L=LOOP_VOC["L"], seed=0,
+        device=DEVICE)
+    voc_big = vocab.train_vocabulary(random_words(rng, 40000), seed=0,
+                                     device=DEVICE, **VOC_BIG)
+    log(f"vocabularies trained in {time.perf_counter() - t0:.1f} s: "
+        f"{voc_loop.node_desc.shape[0]} and {voc_big.node_desc.shape[0]} "
+        "nodes")
+    cases = {"loop": (voc_loop, LOOP_CFG["max_kps"], 0.1),
+             "big": (voc_big, 512, 0.0), "big_odd": (voc_big, 509, 0.2)}
+    rec = {}
+    for i, (label, (voc, N, p_inv)) in enumerate(cases.items()):
+        desc, valid = descent_case(voc, N, 20 + i, p_inv)
+        w_k = vocab_k.transform_words_kernel(voc.node_desc, desc, valid,
+                                             voc.k, voc.L)
+        w_p = vocab._transform_words(voc.node_desc, desc, valid, voc.k,
+                                     voc.L)
+        torch.cuda.synchronize()
+        err = (w_k.long() - w_p.long()).abs().max().item()
+        log(f"B7 bow_descent {label}: N={N}, k={voc.k}, L={voc.L}, "
+            f"{int((~valid).sum())} invalid rows, "
+            f"{len(torch.unique(w_p))} distinct words, max_abs_err {err}")
+        if err != 0 or not torch.equal(w_k, w_p) \
+                or not torch.equal(w_k < 0, ~valid):
+            raise AssertionError(f"B7 disagrees with its plain version "
+                                 f"({label})")
+        rec[label] = dict(max_abs_err=float(err), voc=voc,
+                          args=(desc, valid))
+    return rec
+
+
+def train_loop_vocabulary(ds):
+    """The loop run's vocabulary: the first frames' descriptors, as
+    tests/test_longrun.py:41-49 trains it."""
+    v = LOOP_VOC
+    descs = []
+    for _ in range(v["frames"]):
+        fr = ds.grab_frame()
+        f = frontend.extract_features(
+            torch.as_tensor(fr.image, device=DEVICE), max_kps=v["max_kps"],
+            threshold=v["threshold"])
+        descs.append(f.desc[f.valid].cpu().numpy().view(np.uint32))
+    return vocab.train_vocabulary(np.concatenate(descs), k=v["k"], L=v["L"],
+                                  seed=v["seed"], device=DEVICE)
+
+
+def phase_loop():
+    """KeyframeSLAM with a vocabulary over the two-lap sequence, frames
+    rendered one at a time; launch counters around the run; the gates
+    of tests/test_longrun.py::test_kitti00_shaped_two_lap_run; then the
+    kidnap and its relocalization."""
+    ds = SyntheticDataset(**LOOP_SEQUENCE)
+    ds.open("synth://")
+    t0 = time.perf_counter()
+    voc = train_loop_vocabulary(ds)
+    log(f"loop vocabulary: k={voc.k}, L={voc.L}, {voc.n_words} words, "
+        f"trained in {time.perf_counter() - t0:.1f} s")
+    ds.open("synth://")                      # rewind
+    n = LOOP_SEQUENCE["n_frames"]
+    slam = KeyframeSLAM(ds.camera, SLAMConfig(**LOOP_CFG), vocabulary=voc,
+                        device=DEVICE)
+    lc = slam.loop_closer
+    ts, gt, kept, closure_s = [], [], {}, []
+    render_s = track_s = prev_loop_s = 0.0
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(n):
+        t0 = time.perf_counter()
+        fr = ds.grab_frame()
+        t1 = time.perf_counter()
+        slam.track(fr)
+        track_s += time.perf_counter() - t1
+        render_s += t1 - t0
+        ts.append(fr.timestamp)
+        gt.append(fr.gt_pose[:3])
+        if KIDNAP_FRAME <= i < KIDNAP_FRAME + KIDNAP_TRIES:
+            kept[i] = fr
+        if len(lc.closed) > len(closure_s):
+            loop_s = slam.timer.stats()["slam/loop"]["total"]
+            closure_s.append(loop_s - prev_loop_s)
+            prev_loop_s = loop_s
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"loop run path launches over {n} frames: {launched} "
+        f"({track_s:.2f} s in track, {render_s:.2f} s rendering)")
+    missing = [k for k in LOOP_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the loop path never ran: "
+                             f"{missing}")
+    n_kf = int(slam.arena.n_frames)
+    n_pts = int(slam.arena.point_valid.sum())
+    overflow = bool(slam.arena.overflow)
+    ts, gt = np.asarray(ts), np.stack(gt)
+    corrected = slam.corrected_positions()
+    m = evaluate_trajectory(ts, corrected, ts, gt, with_scale=False)
+    m_raw = evaluate_trajectory(ts, slam.positions(), ts, gt,
+                                with_scale=False)
+    tracked = sum(st["n_inliers"] >= slam.cfg.min_track_inliers
+                  for st in slam.stats)
+    st = slam.timer.stats()
+    split = {k.split("/")[1]: v["total"] * 1e3 / n for k, v in st.items()}
+    top = sum(v for k, v in split.items() if k != "loop_gba")  # nested
+    log(f"loop run: {tracked}/{n} frames tracked, {n_kf} keyframes, "
+        f"{n_pts} points, overflow {overflow}, closures {lc.closed}, "
+        f"verifications {len(lc.verify_log)} "
+        f"({sum(v[4] for v in lc.verify_log)} accepted), global BA runs "
+        f"{st.get('slam/loop_gba', {}).get('count', 0)}; ATE corrected "
+        f"{m.ate_rmse:.6f} m (gate {LOOP_ATE_GATE} m), as tracked "
+        f"{m_raw.ate_rmse:.6f} m, RPE {m.rpe_rmse:.6f} m")
+    log(f"loop run: {track_s * 1e3 / n:.3f} ms/frame "
+        f"({n / track_s:.2f} frames/s); split ms/frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; rest (host glue) {track_s * 1e3 / n - top:.3f}; seconds per "
+          f"closure {[round(x, 3) for x in closure_s]}")
+    if not np.isfinite(corrected).all() or corrected.shape != (n, 3):
+        raise AssertionError("trajectory not finite or of the wrong shape")
+    if n_kf < LOOP_MIN_KEYFRAMES or overflow or n_pts >= slam.cfg.cap_points:
+        raise AssertionError(f"{n_kf} keyframes, {n_pts} points, overflow "
+                             f"{overflow}")
+    if len(lc.closed) < LOOP_MIN_CLOSURES:
+        raise AssertionError(f"only {len(lc.closed)} loop closures")
+    if not m.ate_rmse < LOOP_ATE_GATE:
+        raise AssertionError(f"ATE {m.ate_rmse} m above {LOOP_ATE_GATE} m")
+
+    # kidnap: a far-away pose and a dead motion model; a lost tracker
+    # gets a stream of frames, as in
+    # tests/test_loop_closure.py::TestRelocalization
+    slam.pose_wc = torch.tensor([50.0, 50.0, 50.0, 1.0, 0, 0, 0],
+                                device=DEVICE)
+    slam.velocity = slam._identity()
+    slam._lost_frames = 0
+    before = vocab_k.launches
+    t0 = time.perf_counter()
+    for tries, (i, fr) in enumerate(sorted(kept.items()), 1):
+        slam.track(fr)
+        est = slam.pose_wc[:3].cpu().numpy()
+        if np.linalg.norm(est) < 40.0:          # left the kidnap pose
+            break
+    reloc_s = time.perf_counter() - t0
+    dist = float(np.linalg.norm(est - corrected[i]))
+    b7_reloc = vocab_k.launches - before
+    log(f"kidnap: relocalized after {tries} frame(s) in {reloc_s:.3f} s, "
+        f"{dist:.3f} m from where the run placed frame {i} (tolerance "
+        f"{KIDNAP_TOL_M} m), B7 launches {b7_reloc}")
+    if not dist < KIDNAP_TOL_M or b7_reloc < 1:
+        raise AssertionError("relocalization failed")
+    return launched, dict(
+        frames=n, tracked=tracked, keyframes=n_kf, points=n_pts,
+        closures=[list(c) for c in lc.closed],
+        verifications=len(lc.verify_log), ate_m=m.ate_rmse,
+        ate_uncorrected_m=m_raw.ate_rmse, rpe_m=m.rpe_rmse,
+        ms_per_frame=track_s * 1e3 / n, frames_per_s=n / track_s,
+        split_ms_per_frame=split, seconds_per_closure=closure_s,
+        render_s=render_s, reloc_frames=tries, reloc_s=reloc_s,
+        reloc_dist_m=dist, reloc_b7_launches=b7_reloc)
+
+
+def descent_work(voc, N):
+    """(bytes, operations) of one descent: descriptors and validity in,
+    words out, the nodes touched (at most k L per descriptor, at most the
+    table); 8 xor-popcounts per descriptor, level and child."""
+    touched = min(voc.node_desc.shape[0], N * voc.k * voc.L)
+    return N * 32 + touched * 32 + N * 5, N * voc.k * voc.L * 8
+
+
+def phase_vocab_kernel_times(rec_v, launched, n_keyframes):
+    """B7's device time beside its plain version at both shapes: (the
+    kernels-line record, at the loop path's shape; the record at the
+    larger tree)."""
+    out = []
+    for label in ("loop", "big"):
+        voc = rec_v[label]["voc"]
+        desc, valid = rec_v[label]["args"]
+        calls = {"bow_descent": (
+            lambda: vocab_k.transform_words_kernel(
+                voc.node_desc, desc, valid, voc.k, voc.L),
+            lambda: vocab._transform_words(voc.node_desc, desc, valid,
+                                           voc.k, voc.L))}
+        log(f"B7 at N={desc.shape[0]}, k={voc.k}, L={voc.L} "
+            f"({voc.node_desc.shape[0]} nodes):")
+        out += time_kernels(
+            calls, {"bow_descent": descent_work(voc, desc.shape[0])},
+            {"bow_descent": rec_v[label]}, launched,
+            {"bow_descent": f"{launched['bow_descent'] / n_keyframes:.2f} "
+             "per keyframe"})
+    return out
+
+
 def time_kernels(calls, work, rec, launched, per=None):
     """Device time of each kernel and its plain version (CUDA graph
     replay, in turns: plain, kernel, kernel, plain) and the kernel's
@@ -783,13 +1035,23 @@ def main() -> int:
     t = phase("KeyframeSLAM main path", t)
     slam_times = phase_slam_timing(camera, frames)
     t = phase("KeyframeSLAM timing", t)
+    del frames
+    rec_v = phase_check_vocab()
+    t = phase("check B7", t)
+    launched_loop, loop_run = phase_loop()
+    t = phase("loop closure main path", t)
 
-    # B1, B2 report their launches on the SLAM path, B3 on track_forward
+    # B1, B2, B4-B6 report their launches on the 64-frame SLAM path, B3
+    # on track_forward, B7 on the loop run
     launched = {k: (launched_track[k] if k == "matcher"
+                    else launched_loop[k] if k == "bow_descent"
                     else launched_slam[k]) for k in KERNELS}
     kern = phase_kernel_times(rec, launched)
-    kern += phase_slam_kernel_times(rec, launched, len(frames),
+    kern += phase_slam_kernel_times(rec, launched, SLAM_FRAMES,
                                     slam_checks["local_ba_runs"])
+    b7, b7_big = phase_vocab_kernel_times(rec_v, launched,
+                                          loop_run["keyframes"])
+    kern.append(b7)
     t = phase("kernel times", t)
     log(json.dumps({"slice": "track_forward", "shape": [H, W],
                     "map": M, "kps": K, "ransac_b": B,
@@ -797,10 +1059,16 @@ def main() -> int:
                     "frames_per_s": 1e3 / min(ms_k, ms_k2),
                     "plain_ms_per_frame": ms_p, "stages_ms": stages,
                     "profile": prof, "launches": launched_track}))
-    log(json.dumps({"slice": "keyframe_slam", "frames": len(frames),
+    log(json.dumps({"slice": "keyframe_slam", "frames": SLAM_FRAMES,
                     "shape": [SEQUENCE["height"], SEQUENCE["width"]],
                     **slam_checks, **slam_times,
                     "launches": launched_slam}))
+    log(json.dumps({"slice": "loop_closure",
+                    "shape": [LOOP_SEQUENCE["height"],
+                              LOOP_SEQUENCE["width"]],
+                    **loop_run, "launches": launched_loop,
+                    "bow_descent_k8_L4": {k: b7_big[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")}}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card_name_and_power_limit())
     log(json.dumps({"kernels": kern}))

@@ -2,10 +2,12 @@
 
 The system has no weights; its state is the map (the local-map slab of
 the tracking step, the whole ``MapArena`` of the SLAM loop, a BA
-problem) and the camera.  These functions turn the JAX package's arrays
-(as numpy) into this package's tensors and back, so that both compute
-on the same map; ``arena_from_numpy`` / ``arena_to_numpy`` are those of
-:mod:`gslam_tpu_torch.map.arena`.  Descriptors are uint32 words in
+problem, a pose graph), the vocabulary and the camera.  These functions
+turn the JAX package's arrays (as numpy) into this package's tensors and
+back, so that both compute on the same map; ``arena_from_numpy`` /
+``arena_to_numpy`` are those of :mod:`gslam_tpu_torch.map.arena`,
+``vocabulary_from_numpy`` / ``vocabulary_to_numpy`` those of
+:mod:`gslam_tpu_torch.ops.vocab`.  Descriptors are uint32 words in
 numpy and int32 tensors with the same bit pattern here (torch's uint32
 supports few operations).
 """
@@ -22,7 +24,11 @@ from gslam_tpu_torch.map.arena import (  # noqa: F401  (the map's carriers)
 )
 from gslam_tpu_torch.ops.frontend import DESC_WORDS, Features
 from gslam_tpu_torch.ops.matching import Matches
+from gslam_tpu_torch.ops.vocab import (  # noqa: F401  (the tree's carriers)
+    vocabulary_from_numpy, vocabulary_to_numpy,
+)
 from gslam_tpu_torch.opt.ba import BundleProblem
+from gslam_tpu_torch.opt.pose_graph import PoseGraph
 from gslam_tpu_torch.utils.platform import require_device
 
 
@@ -93,3 +99,20 @@ def bundle_problem_from_numpy(fields, device="cuda"):
     return BundleProblem(**{
         k: torch.from_numpy(np.array(fields[k], dtype=dtypes[k])).to(dev)
         for k in BundleProblem._fields})
+
+
+def pose_graph_from_numpy(fields, device="cuda") -> PoseGraph:
+    """A pose graph as numpy (a ``PoseGraph``-shaped tuple or a dict of
+    its field names; the position prior may be absent or None) ->
+    :class:`~gslam_tpu_torch.opt.pose_graph.PoseGraph` on ``device``."""
+    dev = require_device(device)
+    if not isinstance(fields, dict):
+        fields = dict(zip(PoseGraph._fields, fields))
+    dtypes = dict(poses=np.float32, fixed=bool, edge_i=np.int32,
+                  edge_j=np.int32, edge_rel=np.float32, edge_valid=bool,
+                  edge_weight=np.float32, prior_pos=np.float32,
+                  prior_weight=np.float32)
+    return PoseGraph(**{
+        k: None if fields.get(k) is None else torch.from_numpy(
+            np.array(fields[k], dtype=dtypes[k])).to(dev)
+        for k in PoseGraph._fields})

@@ -205,35 +205,57 @@ def pnp_reproj_error(T: torch.Tensor, data: torch.Tensor,
     return torch.where(ok, err, err.new_full((), float("inf")))
 
 
+def _reproj_jacobian(T: torch.Tensor, data: torch.Tensor,
+                     weights: torch.Tensor):
+    """Residuals r (..., N, 2), analytic Jacobians J (..., N, 2, 6) of
+    the normalized reprojection wrt a left-multiplied twist [rho, phi],
+    and the weighted Jacobians J * w, for poses T (..., 7) against data
+    (..., N, 5) = [X | ray_xy]; points behind the camera weigh 0."""
+    pc = se3_apply(T[..., None, :], data[..., :3])      # (..., N, 3)
+    x, y = pc[..., 0], pc[..., 1]
+    z = torch.clamp_min(pc[..., 2], _EPS)
+    iz = 1.0 / z
+    r = pc[..., :2] * iz[..., None] - data[..., 3:5]
+    zero = torch.zeros_like(x)
+    Jx = torch.stack([iz, zero, -x * iz * iz,
+                      -x * y * iz * iz, 1.0 + x * x * iz * iz, -y * iz],
+                     -1)
+    Jy = torch.stack([zero, iz, -y * iz * iz,
+                      -(1.0 + y * y * iz * iz), x * y * iz * iz, x * iz],
+                     -1)
+    J = torch.stack([Jx, Jy], -2)                       # (..., N, 2, 6)
+    w = (weights * (pc[..., 2] > _EPS))[..., None, None]
+    return r, J, J * w
+
+
 def refine_pose_gn(T: torch.Tensor, data: torch.Tensor,
                    weights: torch.Tensor, iters: int = 5) -> torch.Tensor:
     """Gauss-Newton motion-only refinement on the SE(3) tangent.
 
     Minimizes sum_i w_i |pi(T X_i) - uv_i|^2 over a left-multiplied
     twist with analytic 2x6 Jacobians; 6x6 normal equations per step.
+    Batched over leading dimensions: T (..., 7), data (..., N, 5),
+    weights (..., N).  A singular system gives a non-finite pose (no
+    exception, no host read).
     """
     eye = 1e-6 * torch.eye(6, dtype=data.dtype, device=data.device)
     for _ in range(iters):
-        pc = se3_apply(T, data[:, :3])                  # (N, 3)
-        x, y = pc[:, 0], pc[:, 1]
-        z = torch.clamp_min(pc[:, 2], _EPS)
-        iz = 1.0 / z
-        r = pc[:, :2] * iz[:, None] - data[:, 3:5]      # (N, 2)
-        zero = torch.zeros_like(x)
-        Jx = torch.stack([iz, zero, -x * iz * iz,
-                          -x * y * iz * iz, 1.0 + x * x * iz * iz, -y * iz],
-                         -1)
-        Jy = torch.stack([zero, iz, -y * iz * iz,
-                          -(1.0 + y * y * iz * iz), x * y * iz * iz, x * iz],
-                         -1)
-        J = torch.stack([Jx, Jy], 1)                    # (N, 2, 6)
-        w = (weights * (pc[:, 2] > _EPS))[:, None, None]
-        Jw = J * w
-        H = torch.einsum("nia,nib->ab", Jw, J) + eye
-        b = torch.einsum("nia,ni->a", Jw, r)
-        dx = -torch.linalg.solve(H, b)
+        r, J, Jw = _reproj_jacobian(T, data, weights)
+        H = torch.einsum("...nia,...nib->...ab", Jw, J) + eye
+        b = torch.einsum("...nia,...ni->...a", Jw, r)
+        dx = -torch.linalg.solve_ex(H, b[..., None])[0][..., 0]
         T = se3_mul(se3_exp(dx), T)
     return T
+
+
+def pose_information(T: torch.Tensor, data: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Gauss-Newton pose information H = sum_i w_i J_i^T J_i (..., 6, 6)
+    at the solution, from the Jacobians of :func:`refine_pose_gn`, in
+    normalized image-coordinate units: the estimator-derived weight of a
+    pose-graph edge.  Batched like :func:`refine_pose_gn`."""
+    _, J, Jw = _reproj_jacobian(T, data, weights)
+    return torch.einsum("...nia,...nib->...ab", Jw, J)
 
 
 def find_pnp_ransac(points3d: torch.Tensor, rays: torch.Tensor,

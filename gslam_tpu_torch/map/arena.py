@@ -328,16 +328,39 @@ def _incidence(arena: MapArena) -> torch.Tensor:
     return M.clamp_(0, 1).reshape(F, P)
 
 
+def covisibility_matrix(arena: MapArena) -> torch.Tensor:
+    """(F, F) int32 shared-landmark counts between valid frames, the
+    diagonal zeroed: one matrix product of the incidence matrix."""
+    M = _incidence(arena)
+    C = M @ M.T
+    C = C * (1.0 - torch.eye(arena.cap_frames, dtype=C.dtype,
+                             device=C.device))
+    both = arena.frame_valid[:, None] & arena.frame_valid[None, :]
+    return torch.where(both, C, torch.zeros_like(C)).to(torch.int32)
+
+
+def _covis_row(arena: MapArena, frame_id) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(float32 shared-landmark counts of one frame against all valid
+    others with its own entry zeroed, the frame id as a long tensor)."""
+    M = _incidence(arena)
+    fid = torch.as_tensor(frame_id, device=arena.device).long()
+    row = (M @ M[fid]).index_fill(0, fid.reshape(1), 0.0)
+    return torch.where(arena.frame_valid, row, torch.zeros_like(row)), fid
+
+
+def covisibility_row(arena: MapArena, frame_id) -> torch.Tensor:
+    """(cap_frames,) int32 shared-landmark counts of one frame against
+    all others (its own entry zeroed)."""
+    return _covis_row(arena, frame_id)[0].to(torch.int32)
+
+
 def covisibility_topk(arena: MapArena, frame_id: torch.Tensor, k: int,
                       min_common: int = 15
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k covisible neighbours of one frame: (ids, counts), -1 pad;
     ties go to the lowest frame id, as ``lax.top_k`` breaks them."""
-    M = _incidence(arena)
-    fid = torch.as_tensor(frame_id, device=arena.device).long()
-    row = M @ M[fid]
-    row = row.index_fill(0, fid.reshape(1), 0.0)
-    row = torch.where(arena.frame_valid, row, torch.zeros_like(row))
+    row, _ = _covis_row(arena, frame_id)
     counts, ids = torch.sort(row, descending=True, stable=True)
     counts, ids = counts[:k], ids[:k]
     good = counts >= min_common

@@ -1,5 +1,6 @@
 """Keyframe SLAM, RGB-D sequential path: track against the local map,
-keyframe mapping, local bundle adjustment, map hygiene.
+keyframe mapping, local bundle adjustment, loop closure, relocalization,
+map hygiene.
 
 Counterpart of ``gslam_tpu/models/keyframe_slam.py`` for frames that
 carry depth, one frame per ``track`` call:
@@ -13,6 +14,11 @@ carry depth, one frame per ``track`` call:
             depth away from existing ones
   local BA: covisibility window -> Schur LM (B5 normal equations, B6
             cost) -> write-back
+  loop:     with a vocabulary, every keyframe goes into the BoW
+            database (tree descent, B7); loops are detected, verified,
+            fused and corrected by the pose graph and a gated global BA
+            (:mod:`gslam_tpu_torch.models.loop_closure`); a lost tracker
+            relocalizes through the database
   hygiene:  found-ratio cull every keyframe; descriptor / normal refresh,
             redundant-keyframe erase and compaction at the hygiene
             interval.
@@ -22,9 +28,8 @@ MapArena`; frame and keyframe decisions read host mirrors of its
 counters, so a tracked frame costs one device fetch.  Not ported yet,
 and raising ``NotImplementedError`` rather than skipped: frames without
 depth (the monocular two-view bootstrap and triangulation), frames with
-IMU samples, a vocabulary (loop closure and relocalization),
-``n_levels > 1`` and ``dispatch_batch > 1`` (ROADMAP Queue A items 9,
-11, 12, 13 and 3).
+IMU samples, ``n_levels > 1`` and ``dispatch_batch > 1`` (ROADMAP Queue
+A items 9, 13, 3 and 12).
 """
 
 from __future__ import annotations
@@ -43,30 +48,39 @@ from gslam_tpu_torch.estimation.pnp import find_pnp_ransac
 from gslam_tpu_torch.map.arena import (
     INT32_MAX, MapArena, add_observations, compact_arena, covis_union_ids,
     covisibility_topk, cull_by_found_ratio, erase_frame, insert_frame,
-    insert_points, make_arena, redundant_frames, refresh_points, set_rows,
+    insert_points, load_arena, make_arena, redundant_frames, refresh_points,
+    set_rows,
+)
+from gslam_tpu_torch.models.loop_closure import (
+    LoopCloser, inside_volume, map_volume,
 )
 from gslam_tpu_torch.ops.cuda.matcher import match_hamming_gated
-from gslam_tpu_torch.ops.cuda.schur import MAX_CAMS
 from gslam_tpu_torch.ops.frontend import Features, extract_features
-from gslam_tpu_torch.ops.matching import Matches, match_descriptors_gated
+from gslam_tpu_torch.ops.matching import (
+    Matches, match_descriptors, match_descriptors_gated,
+)
+from gslam_tpu_torch.ops.vocab import transform_sparse
 from gslam_tpu_torch.opt.ba import (
-    build_problem_from_arena, bundle_adjust, write_back_to_arena,
+    build_problem_from_arena, bundle_adjust, resolve_ba_kernels,
+    write_back_to_arena,
 )
 from gslam_tpu_torch.utils.platform import require_device
 from gslam_tpu_torch.utils.timer import Timer
 
 RANSAC_B = 256          # hypotheses per frame (find_pnp_ransac's default)
+RELOC_B = 1024          # per relocalization candidate: no pose prior
+RELOC_CANDIDATES = 8
 
 
 @dataclasses.dataclass
 class SLAMConfig:
     """The JAX package's ``SLAMConfig`` for the RGB-D sequential path,
     with ``use_pallas`` renamed ``use_kernels``: True routes B1, B2, B4,
-    B5 and B6 through the CUDA kernels (their plain versions on CPU
-    tensors).  The fields of the paths that are not ported (pyramid
-    scale, relocalization, loop closure, visual-inertial BA) and the
-    JAX package's dispatch-fusion switches, which select between
-    equivalent computations, are left out."""
+    B5, B6 and B7 through the CUDA kernels (their plain versions on CPU
+    tensors; B5 / B6 up to 32 cameras, the plain Schur path above).  The
+    fields of the paths that are not ported (pyramid scale,
+    visual-inertial BA) and the JAX package's dispatch-fusion switches,
+    which select between equivalent computations, are left out."""
 
     max_kps: int = 512
     fast_threshold: float = 0.06
@@ -87,6 +101,7 @@ class SLAMConfig:
     dedup_radius_px: float = 4.0   # no new point near an existing one
     pnp_px_threshold: float = 2.0  # RANSAC inlier gate (pixels)
     min_track_inliers: int = 12
+    reloc_min_inliers: int = 15    # PnP gate for BoW relocalization
     max_pose_jump: float = 1.0     # reject poses this far from the
     #                                motion-model prediction (m)
     max_lost_frames: int = 5       # coast this long before re-anchoring
@@ -99,6 +114,7 @@ class SLAMConfig:
     cull_min_visible: int = 10
     cull_min_ratio: float = 0.1
     hygiene_interval: int = 4      # KFs between refresh / KF-cull passes
+    loop_global_ba_iters: int = 4  # post-loop global BA budget (0 = off)
 
 
 def _not_ported(what: str, item: str):
@@ -111,10 +127,16 @@ class KeyframeSLAM:
     """``KeyframeSLAM(camera, SLAMConfig(...)).track(frame)`` per frame.
 
     Runs on ``device`` (the CUDA card unless the caller asks for the
-    CPU).  RANSAC draws come from a ``torch.Generator`` on the device
-    seeded with ``cfg.seed``, or, when ``uniforms`` is given, from
-    ``uniforms()``, a callable returning the (256, 4) uniforms of each
-    draw (the tests replay the JAX package's key chain through it).
+    CPU).  With a ``vocabulary`` (a
+    :class:`~gslam_tpu_torch.ops.vocab.Vocabulary` on ``device``) every
+    keyframe enters the BoW database, loops are closed and a lost
+    tracker relocalizes (``slam.loop_closer``).  RANSAC draws come from
+    a ``torch.Generator`` on the device seeded with ``cfg.seed``, or,
+    when ``uniforms`` is given, from ``uniforms()``, a callable returning
+    the uniforms of each draw: (256, 4) for a tracked frame, (1024, 4)
+    for a relocalization candidate (the tests replay the JAX package's
+    key chain through it).  The loop closer draws from a generator of
+    its own (``LoopCloser``'s ``seed`` and ``uniforms``).
     """
 
     def __init__(self, camera: Camera, config: Optional[SLAMConfig] = None,
@@ -124,27 +146,34 @@ class KeyframeSLAM:
         self.camera = camera
         self.cfg = config or SLAMConfig()
         c = self.cfg
-        if vocabulary is not None:
-            raise _not_ported("loop closure with a vocabulary", "item 11")
         if c.n_levels > 1:
             raise _not_ported("pyramid extraction (n_levels > 1)", "item 3")
         if c.dispatch_batch > 1:
             raise _not_ported("batched dispatch (dispatch_batch > 1)",
                               "item 12")
-        if c.use_kernels and c.enable_ba and c.ba_window > MAX_CAMS:
-            raise NotImplementedError(
-                f"local BA over ba_window={c.ba_window} cameras: the Schur "
-                f"kernel (B5) takes at most {MAX_CAMS}; set "
-                f"use_kernels=False for the plain path")
         self.timer = Timer()
+        self.loop_closer: Optional[LoopCloser] = None
+        if vocabulary is not None:
+            # torch.device("cuda") and "cuda:0" name one card
+            if torch.empty(0, device=self.device).device \
+                    != vocabulary.device:
+                raise ValueError(
+                    f"the vocabulary lies on {vocabulary.device}, the SLAM "
+                    f"system on {self.device}")
+            # the absolute inlier floor scales with the keypoint budget;
+            # aliasing protection is the match-fraction bar and the
+            # covisibility exclusion, so nothing is tuned per run
+            self.loop_closer = LoopCloser(
+                vocabulary, c.cap_frames, use_kernels=c.use_kernels,
+                min_inliers=max(12, c.max_kps // 16), min_gap=3,
+                timer=self.timer)
         self.arena: MapArena = make_arena(
             cap_frames=c.cap_frames, cap_kps=c.max_kps,
             cap_points=c.cap_points, cap_obs=c.cap_obs, device=self.device)
         self._uniforms = uniforms
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(c.seed)
-        ident = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32,
-                             device=self.device)
+        ident = self._identity()
         self.pose_wc = ident              # current cam->world
         self.velocity = ident             # T_cw(t) * T_cw(t-1)^-1
         self.last_kf_id: int = -1
@@ -169,13 +198,48 @@ class KeyframeSLAM:
         return torch.full((), self.last_kf_id, dtype=torch.int32,
                           device=self.device)
 
-    def _find_pnp(self, xyz, rays, valid):
+    def load_map(self, arena_or_path, pose_wc=None) -> None:
+        """Resume / localize on a prebuilt map: an arena, or the path of
+        an arena checkpoint.  Without ``pose_wc`` the camera starts at
+        the last keyframe's pose (BoW relocalization engages by itself
+        when tracking fails).  The BoW database is rebuilt from the
+        stored descriptors."""
+        arena = (load_arena(arena_or_path, device=self.device)
+                 if isinstance(arena_or_path, str) else arena_or_path)
+        self.arena = arena
+        self.last_kf_id = int(arena.n_frames) - 1
+        self._n_frames_host = self.last_kf_id + 1
+        self._n_points_host = int(arena.n_points)
+        self.initialized = (self.last_kf_id >= 0
+                            and int(arena.point_valid.sum()) > 20)
+        if pose_wc is not None:
+            self.pose_wc = torch.as_tensor(pose_wc, dtype=torch.float32,
+                                           device=self.device)
+        elif self.last_kf_id >= 0:
+            self.pose_wc = se3_inverse(
+                arena.frame_pose[self.last_kf_id][:7])
+        self.velocity = self._identity()
+        if self.loop_closer is not None:
+            for f in range(self.last_kf_id + 1):
+                self._bow_add(f)
+
+    def _identity(self) -> torch.Tensor:
+        return torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32,
+                            device=self.device)
+
+    def _bow_add(self, fid: int) -> None:
+        self.loop_closer.add_keyframe(
+            fid, self.arena.frame_desc[fid],
+            torch.arange(self.cfg.max_kps, device=self.device)
+            < self.arena.frame_kp_count[fid])
+
+    def _find_pnp(self, xyz, rays, valid, B=RANSAC_B,
+                  max_depth=float("inf")):
         thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
-        if self._uniforms is not None:
-            return find_pnp_ransac(xyz, rays, valid, threshold=thr,
-                                   B=RANSAC_B, uniforms=self._uniforms())
-        return find_pnp_ransac(xyz, rays, valid, threshold=thr, B=RANSAC_B,
-                               generator=self._gen)
+        draw = dict(generator=self._gen) if self._uniforms is None \
+            else dict(uniforms=self._uniforms())
+        return find_pnp_ransac(xyz, rays, valid, threshold=thr, B=B,
+                               max_depth=max_depth, **draw)
 
     def _kp_depths(self, depth: torch.Tensor, feats: Features):
         """Per-keypoint metric depth (K,): the depth image at the
@@ -233,12 +297,14 @@ class KeyframeSLAM:
                 if self._need_keyframe(n_inliers, n_matches):
                     self._insert_keyframe(frame, feats, pose_cw)
             else:
-                # lost: coast on the motion model; with no vocabulary
-                # there is no relocalization, so after max_lost_frames
-                # re-anchor with a fresh keyframe
+                # lost: coast on the motion model (no keyframe at an
+                # uncertain pose); try BoW relocalization when there is
+                # a vocabulary; after max_lost_frames re-anchor with a
+                # fresh keyframe
                 self._lost_frames += 1
                 self.pose_wc = se3_inverse(pred_cw)
-                if self._lost_frames > c.max_lost_frames:
+                if not self._relocalize(feats) \
+                        and self._lost_frames > c.max_lost_frames:
                     self._insert_keyframe(frame, feats,
                                           se3_inverse(self.pose_wc))
                     self._lost_frames = 0
@@ -424,12 +490,23 @@ class KeyframeSLAM:
         self._finish_keyframe(fid, run_ba)
 
     def _finish_keyframe(self, fid: int, run_ba: bool) -> None:
-        """After inserting keyframe ``fid``: local BA, then map
-        hygiene."""
+        """After inserting keyframe ``fid``: local BA, loop closing,
+        then map hygiene."""
         self.last_kf_id = fid
         self.frames_since_kf = 0
         if run_ba and self.cfg.enable_ba and self._n_frames_host >= 2:
             self._local_ba()
+        if self.loop_closer is not None:
+            with self.timer.section("slam/loop"):
+                self._bow_add(fid)
+                self.arena, closed = self.loop_closer.close(
+                    self.arena, self.camera, fid,
+                    global_ba_iters=self.cfg.loop_global_ba_iters)
+                if closed:
+                    self.pose_wc = se3_inverse(
+                        self.arena.frame_pose[fid][:7])
+                    self.velocity = self._identity()
+                self.timer.block(self.arena.frame_pose)
         if self.cfg.enable_map_hygiene:
             self._map_hygiene()
 
@@ -459,10 +536,83 @@ class KeyframeSLAM:
                     if n_valid < 0.7 * n_alloc:
                         self.arena, _ = compact_arena(self.arena)
 
+    def _relocalize(self, feats: Features) -> bool:
+        """BoW relocalization after tracking loss: query the keyframe
+        database with the frame's BoW vector, PnP-verify the frame
+        against the covisibility neighbourhood of each of the best
+        candidates (BoW retrieval ranks, geometry decides), and reset the
+        pose and the motion model.  One draw per evaluated candidate, in
+        rank order; the candidates' results are read back together."""
+        c = self.cfg
+        lc = self.loop_closer
+        if lc is None or self._n_frames_host < 2:
+            return False
+        bow, _ = transform_sparse(lc.voc, feats.desc, feats.valid,
+                                  use_kernels=lc.use_kernels)
+        scores = lc.query(bow)
+        good = [int(x) for x in np.argsort(-scores)[:RELOC_CANDIDATES]]
+        good = good[:next((i for i, x in enumerate(good)
+                           if scores[x] < lc.min_score), len(good))]
+        if not good:
+            return False
+        # a relocalized camera lies inside the mapped region, and PnP
+        # inliers count within a scene-scale depth (the gates of
+        # LoopCloser.verify: without them a lower inlier bar would admit
+        # degenerate RANSAC poses)
+        lo, hi, margin = map_volume(self.arena, self._n_frames_host)
+        max_depth = 4.0 * float((hi - lo).max()) + 10.0
+        arena = self.arena
+        packed = []
+        for cand in good:
+            pids = covis_union_ids(
+                arena, torch.full((), cand, dtype=torch.int32,
+                                  device=self.device),
+                c.local_map_size, window=4, min_common=5)
+            pslot = pids.clamp_min(0).long()
+            ok = (pids >= 0) & arena.point_valid[pslot]
+            m = match_descriptors(arena.point_desc[pslot], ok, feats.desc,
+                                  feats.valid, ratio=0.9)
+            rays = self.camera.unproject(
+                feats.uv[m.idx.clamp_min(0).long()])[:, :2]
+            T, _, n = self._find_pnp(arena.point_xyz[pslot], rays, m.valid,
+                                     B=RELOC_B, max_depth=max_depth)
+            packed.append(torch.cat([T, se3_inverse(T)[:3],
+                                     n.to(torch.float32)[None]]))
+        packed = torch.stack(packed).cpu().numpy()       # one fetch
+        results = []               # (n, rank, centre)
+        for k in range(len(good)):
+            center = packed[k, 7:10]
+            if inside_volume(center, lo, hi, margin):
+                results.append((int(packed[k, 10]), k, center))
+        if not results:
+            return False
+        results.sort(key=lambda r: -r[0])
+        n0, k0, c0 = results[0]
+        accept = n0 >= c.reloc_min_inliers
+        if not accept:
+            # independent candidate neighbourhoods solving to the same
+            # camera centre verify each other: accept at half the bar
+            # when at least 2 candidates agree within 1 m
+            half = max(6, c.reloc_min_inliers // 2)
+            agree = [r for r in results
+                     if r[0] >= half and np.linalg.norm(r[2] - c0) < 1.0]
+            accept = n0 >= half and len(agree) >= 2
+        if not accept:
+            return False
+        self.pose_wc = se3_inverse(torch.from_numpy(packed[k0, :7]).to(
+            self.device))
+        self.velocity = self._identity()
+        self._lost_frames = 0
+        # the tracker's local map re-anchors at the relocalization site
+        self.last_kf_id = good[k0]
+        return True
+
     # ------------------------------------------------------------------
     def _local_ba_step(self, arena: MapArena, kf: torch.Tensor):
         """Window selection, problem extraction, LM, write-back; returns
-        (arena, pose_wc of ``kf``)."""
+        (arena, pose_wc of ``kf``).  The B5 / B6 kernels run when
+        ``resolve_ba_kernels`` allows (at most 32 cameras), the plain
+        Schur path above that."""
         c = self.cfg
         nbr, _ = covisibility_topk(arena, kf, k=c.ba_window - 1,
                                    min_common=5)
@@ -476,8 +626,9 @@ class KeyframeSLAM:
         problem, _ = build_problem_from_arena(
             arena, cam_ids, point_ids, fixed, self.camera,
             max_obs_per_point=c.ba_obs_per_point)
-        problem, _ = bundle_adjust(problem, iters=c.ba_iters,
-                                   use_kernels=c.use_kernels)
+        problem, _ = bundle_adjust(
+            problem, iters=c.ba_iters,
+            use_kernels=resolve_ba_kernels(c.use_kernels, cam_ids.shape[0]))
         arena = write_back_to_arena(arena, problem, cam_ids, point_ids)
         return arena, se3_inverse(arena.frame_pose[kf.long()][:7])
 

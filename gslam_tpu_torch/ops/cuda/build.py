@@ -24,7 +24,7 @@ from gslam_tpu_torch.utils.platform import nvcc_path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fastnms", "brief", "matcher", "gated", "schur")
+SOURCES = ("fastnms", "brief", "matcher", "gated", "schur", "vocab")
 
 # -fmad=false: no a*b+c contraction, so float products and sums round
 # exactly as the plain PyTorch versions' separate operations do

@@ -17,9 +17,10 @@ import functools
 import torch
 
 from gslam_tpu_torch.ops.cuda import build
-from gslam_tpu_torch.opt.ba import BundleProblem, SchurW, ba_cost, schur_reduce
+from gslam_tpu_torch.opt.ba import (
+    MAX_CAMS, BundleProblem, SchurW, ba_cost, schur_reduce,
+)
 
-MAX_CAMS = 32
 schur_launches = 0   # B5 launches since the last reset
 cost_launches = 0    # B6 launches since the last reset
 

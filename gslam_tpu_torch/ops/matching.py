@@ -47,6 +47,18 @@ def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor
     return (BITS - dot) * 0.5
 
 
+def _row_top2(D: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(best, second, idx) per row of a masked (N, M) distance matrix:
+    the first minimum on ties, ``second`` the least distance once the
+    best column is removed."""
+    best, idx = torch.min(D, dim=1)
+    cols = torch.arange(D.shape[1], device=D.device)
+    second = torch.where(cols[None, :] == idx[:, None],
+                         D.new_full((), INF_DIST), D).amin(1)
+    return best, second, idx.to(torch.int32)
+
+
 def hamming_top2(desc_a: torch.Tensor, valid_a: torch.Tensor,
                  desc_b: torch.Tensor, valid_b: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -61,12 +73,8 @@ def hamming_top2(desc_a: torch.Tensor, valid_a: torch.Tensor,
     D = hamming_matrix(desc_a, desc_b)
     D = torch.where(valid_a[:, None] & valid_b[None, :], D,
                     D.new_full((), INF_DIST))
-    best, idx = torch.min(D, dim=1)       # first minimum on ties
-    cols = torch.arange(D.shape[1], device=D.device)
-    second = torch.where(cols[None, :] == idx[:, None],
-                         D.new_full((), INF_DIST), D).amin(1)
     back = torch.argmin(D, dim=0)         # first minimum on ties
-    return best, second, idx.to(torch.int32), back.to(torch.int32)
+    return (*_row_top2(D), back.to(torch.int32))
 
 
 def matches_from_top2(best: torch.Tensor, second: torch.Tensor,
@@ -117,11 +125,7 @@ def hamming_top2_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
     d2 = ((uv_a[:, None, :] - uv_b[None, :, :]) ** 2).sum(-1)
     ok = valid_a[:, None] & valid_b[None, :] & (d2 <= gate2)
     D = torch.where(ok, D, D.new_full((), INF_DIST))
-    best, idx = torch.min(D, dim=1)       # first minimum on ties
-    cols = torch.arange(D.shape[1], device=D.device)
-    second = torch.where(cols[None, :] == idx[:, None],
-                         D.new_full((), INF_DIST), D).amin(1)
-    return best, second, idx.to(torch.int32)
+    return _row_top2(D)
 
 
 def match_descriptors_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
@@ -138,4 +142,28 @@ def match_descriptors_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
         desc_a, valid_a, desc_b, valid_b, uv_a, uv_b,
         gate_squared(gate_radius))
     return matches_from_top2(best, second, idx, None, valid_a,
+                             max_dist=max_dist, ratio=ratio, mutual=False)
+
+
+def match_descriptors_word_gated(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                                 words_a: torch.Tensor,
+                                 desc_b: torch.Tensor, valid_b: torch.Tensor,
+                                 words_b: torch.Tensor,
+                                 max_dist: float = 64.0, ratio: float = 0.9,
+                                 level_div: int = 1) -> Matches:
+    """Word-gated matching: pairs are candidates only when both
+    descriptors fall under the same vocabulary node at the gating level.
+    ``level_div`` = k^(L - l): leaf words integer-divided by it give the
+    level-l node id (1 gates at the leaf itself); unassigned (-1) words
+    never match.  Ratio and ``max_dist`` tests, no mutual check.
+    Counterpart of ``match_descriptors_word_gated`` in the JAX package
+    (tensor operations there too, no kernel)."""
+    D = hamming_matrix(desc_a, desc_b)
+    na = torch.div(words_a, level_div, rounding_mode="floor")
+    nb = torch.div(words_b, level_div, rounding_mode="floor")
+    ok = (valid_a[:, None] & valid_b[None, :]
+          & (words_a[:, None] >= 0) & (words_b[None, :] >= 0)
+          & (na[:, None] == nb[None, :]))
+    D = torch.where(ok, D, D.new_full((), INF_DIST))
+    return matches_from_top2(*_row_top2(D), None, valid_a,
                              max_dist=max_dist, ratio=ratio, mutual=False)

@@ -19,8 +19,9 @@ precision the JAX package's gold tests pin with
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from gslam_tpu_torch.core.se3 import se3_apply, se3_exp, se3_mul
@@ -28,6 +29,8 @@ from gslam_tpu_torch.core.sim3 import sim3_from_se3
 from gslam_tpu_torch.core.so3 import quat_to_matrix
 from gslam_tpu_torch.map.arena import edge_slots, set_rows
 from gslam_tpu_torch.opt.robust import huber_weight
+
+MAX_CAMS = 32     # cameras the Schur (B5) and cost (B6) kernels take
 
 
 class BundleProblem(NamedTuple):
@@ -207,6 +210,19 @@ def schur_reduce(prob: BundleProblem, lam: torch.Tensor, huber_delta: float):
     return S, b_s, W, Hpp_inv, bp
 
 
+def resolve_ba_kernels(use_kernels: bool, n_cams: int) -> bool:
+    """Whether a BA over ``n_cams`` cameras goes through the B5 / B6
+    kernels: when the caller asks for kernels AND ``1 <= n_cams <=
+    MAX_CAMS``, the kernels' contract; the plain Schur path otherwise.
+    A rule of shape, as ``resolve_ba_backend`` / ``schur_pallas_ok`` are
+    in the JAX package: nothing gives way to the plain version because a
+    kernel failed to build or launch, and the launch counters show which
+    path a run took.  Local BA and :func:`global_bundle_adjust` both
+    call it; :func:`bundle_adjust` itself takes ``use_kernels`` as
+    given and raises beyond the contract."""
+    return bool(use_kernels) and 1 <= n_cams <= MAX_CAMS
+
+
 def bundle_adjust(problem: BundleProblem, iters: int = 10,
                   lm_lambda0: float = 1e-4, huber_delta: float = 0.01,
                   use_kernels: bool = False
@@ -347,3 +363,122 @@ def write_back_to_arena(arena, problem: BundleProblem,
                   torch.where(pt_ok[:, None], problem.point_xyz,
                               arena.point_xyz[pslot.long()]))
     return arena.replace(frame_pose=fp, point_xyz=px)
+
+
+def frame_obs_slabs(arena, camera, max_obs_per_frame: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-frame observation slabs: (data (F, K, 5) = [X | ray_xy],
+    weight (F, K)) gathered from the arena edge list, each frame keeping
+    its first K valid observations in edge-list order.  Shared by
+    :func:`motion_only_refine` and the loop closer's pose information."""
+    dev = arena.device
+    F = arena.cap_frames
+    K = max_obs_per_frame or arena.cap_kps
+    e_ok = arena.obs_valid & arena.point_valid[arena.obs_point.long()]
+    order, ok_s, tgt_f, tgt_k = edge_slots(arena.obs_frame, e_ok, F, K)
+    X_e = arena.point_xyz[arena.obs_point[order].long()]
+    uv_pix = arena.frame_kp_uv[arena.obs_frame.long(),
+                               arena.obs_kp.long()][order]
+    data_e = torch.cat([X_e, camera.unproject(uv_pix)[..., :2]], -1)
+    data = torch.zeros((F + 1, K, 5), device=dev)
+    data[tgt_f, tgt_k] = data_e
+    wgt = torch.zeros((F + 1, K), device=dev)
+    wgt[tgt_f, tgt_k] = ok_s.to(torch.float32)
+    return data[:F], wgt[:F]
+
+
+def motion_only_refine(arena, camera, iters: int = 5,
+                       max_obs_per_frame: Optional[int] = None):
+    """Refine EVERY keyframe pose against the current (fixed) landmarks:
+    with the landmarks fixed each camera is independent, so this is one
+    batched motion-only Gauss-Newton over all frames.  Keyframe 0, frames
+    with fewer than 6 observations and non-finite results keep their
+    pose."""
+    from gslam_tpu_torch.estimation.pnp import refine_pose_gn
+
+    F = arena.cap_frames
+    data, wgt = frame_obs_slabs(arena, camera, max_obs_per_frame)
+    poses0 = arena.frame_pose[:, :7]
+    new_poses = refine_pose_gn(poses0, data, wgt, iters=iters)
+    keep = (~arena.frame_valid) | (wgt.sum(-1) < 6) \
+        | (torch.arange(F, device=arena.device) == 0) \
+        | ~torch.isfinite(new_poses).all(-1)
+    fp = arena.frame_pose.clone()
+    fp[:, :7] = torch.where(keep[:, None], poses0, new_poses)
+    return arena.replace(frame_pose=fp)
+
+
+def global_bundle_adjust(arena, camera, iters: int = 10,
+                         max_cams: Optional[int] = None,
+                         max_points: Optional[int] = 4096,
+                         max_obs_per_point: int = 16, mesh=None,
+                         sweeps: int = 2, n_gauge: int = 1,
+                         use_kernels: bool = True):
+    """Global BA over the whole arena (after a loop closure).
+
+    Covers every valid keyframe and landmark.  ``max_cams`` defaults to
+    all keyframes; ``max_points`` bounds the per-solve landmark count
+    (the dense-W Schur layout is (6C, 3P)), and when the map exceeds it
+    the pass is chunked: successive structure-only solves over point
+    chunks ordered by observation count (cameras held fixed), then a
+    motion-only pass over all cameras, repeated ``sweeps`` times.  The
+    ``n_gauge`` oldest keyframes are held fixed.  The B5 / B6 kernels
+    run when :func:`resolve_ba_kernels` allows (at most ``MAX_CAMS``
+    keyframes), the plain Schur path above that.  Returns (arena, the
+    concatenated per-solve cost histories).  Reads the keyframe count,
+    the landmark count and the per-landmark observation counts back to
+    the host, once per call."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "global BA over a device mesh is not ported to gslam_tpu_torch "
+            "yet (ROADMAP Queue A item 15)")
+    dev = arena.device
+    n_f = int(arena.n_frames)
+    n_p = int(arena.point_valid.sum())
+    if n_f < 2 or n_p == 0:
+        return arena, torch.zeros(1, device=dev)
+
+    C = n_f if max_cams is None else min(max_cams, n_f)
+    cam_start = n_f - C
+    cam_ids = torch.arange(cam_start, cam_start + C, dtype=torch.int32,
+                           device=dev)
+    fixed = torch.arange(C, device=dev) < n_gauge
+    kernels = resolve_ba_kernels(use_kernels, C)
+
+    # landmarks ordered best-constrained first (observation count);
+    # integer adds, so the order of the card's atomics cannot matter
+    obs_count = torch.zeros(arena.cap_points, dtype=torch.int64,
+                            device=dev).index_add(
+        0, arena.obs_point.long(), arena.obs_valid.to(torch.int64))
+    obs_count = torch.where(arena.point_valid, obs_count, -1).cpu().numpy()
+    pt_order = np.argsort(-obs_count, kind="stable")[:n_p]
+
+    budget = n_p if max_points is None else min(max_points, n_p)
+    n_chunks = -(-n_p // budget)
+    if n_chunks == 1:
+        sweeps = 1
+
+    costs_all = []
+    for _ in range(sweeps):
+        for ci in range(n_chunks):
+            chunk = pt_order[ci * budget:(ci + 1) * budget]
+            point_ids = np.full(budget, -1, np.int32)
+            point_ids[:len(chunk)] = chunk
+            point_ids = torch.from_numpy(point_ids).to(dev)
+            problem, _ = build_problem_from_arena(
+                arena, cam_ids, point_ids, fixed, camera,
+                max_obs_per_point=max_obs_per_point)
+            if n_chunks > 1:
+                # resection-intersection: per chunk each camera sees a
+                # fraction of its observations, so structure passes move
+                # points only and a motion-only pass over all
+                # observations refines every camera (below)
+                problem = problem._replace(
+                    cam_fixed=torch.ones_like(problem.cam_fixed))
+            problem, stats = bundle_adjust(problem, iters=iters,
+                                           use_kernels=kernels)
+            arena = write_back_to_arena(arena, problem, cam_ids, point_ids)
+            costs_all.append(stats.cost)
+        if n_chunks > 1:
+            arena = motion_only_refine(arena, camera, iters=iters)
+    return arena, torch.cat(costs_all)

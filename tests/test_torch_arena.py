@@ -217,3 +217,26 @@ def test_make_arena_needs_a_card_unless_cpu():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         ta.make_arena(2, 4, 8, 8)
+
+
+def test_covisibility_matrix_and_row():
+    """Shared-landmark counts: the whole matrix and single rows, with an
+    erased frame and erased points (integers: equal)."""
+    j, t = build_pair(np.random.default_rng(5), n_frames=F, n_batches=3)
+    j = ja.erase_frame(j, jnp.asarray(2))
+    t = ta.erase_frame(t, 2)
+    j = ja.erase_points(j, jnp.asarray([1, 5], jnp.int32))
+    t = ta.erase_points(t, torch.tensor([1, 5], dtype=torch.int32))
+    Cj = np.asarray(ja.covisibility_matrix(j))
+    Ct = ta.covisibility_matrix(t)
+    assert Ct.dtype == torch.int32 and Ct.shape == (F, F)
+    np.testing.assert_array_equal(Ct.numpy(), Cj)
+    assert Cj.max() > 0 and (np.diag(Cj) == 0).all() and (Cj[2] == 0).all()
+    for f in range(F):
+        rj = np.asarray(ja.covisibility_row(j, jnp.asarray(f)))
+        for fid in (f, torch.tensor(f)):
+            rt = ta.covisibility_row(t, fid)
+            assert rt.dtype == torch.int32
+            np.testing.assert_array_equal(rt.numpy(), rj)
+        if f != 2:
+            np.testing.assert_array_equal(rj, Cj[f])

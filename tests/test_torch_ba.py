@@ -209,3 +209,132 @@ def test_build_problem_and_write_back_on_a_carried_arena(O):
     # frame 0 is fixed and repeated by the padded slot: unchanged
     np.testing.assert_array_equal(t2.frame_pose[0].numpy(),
                                   t.frame_pose[0].numpy())
+
+
+# ---------------------------------------------------------------------------
+# loop-closure slice: routing by shape, pose information, per-frame
+# slabs, motion-only refinement and global BA, from one carried arena.
+# Slabs: tables equal, rays to 1e-7.  Pose information rtol 1e-4 (a sum
+# of ~40 float32 products).  Refined poses 1e-4 and, after a global BA,
+# poses 1e-4 and points 1e-3: float32 LM on both sides, as above.
+
+
+def cameras(cam):
+    return JCamera.pinhole(320, 240, *cam), Camera.pinhole(320, 240, *cam)
+
+
+def test_wide_window_routes_to_plain_path_in_both_packages():
+    """More cameras than the Schur kernel takes: both packages' routing
+    rules pick the plain path by shape, and the plain LM over a 40-camera
+    window agrees; within the contract the rule picks the kernels."""
+    wide = make_ba_problem(np.random.default_rng(40), C=40, P=160, O=6)
+    small = make_ba_problem(np.random.default_rng(8), C=8, P=40, O=4)
+    assert not jps.schur_pallas_ok(wide) and jps.schur_pallas_ok(small)
+    assert jba.resolve_ba_backend(wide) == "jnp"
+    assert tba.MAX_CAMS == jps.MAX_CAMS == 32
+    assert not tba.resolve_ba_kernels(True, 40)
+    assert tba.resolve_ba_kernels(True, 32) and tba.resolve_ba_kernels(True, 1)
+    assert not tba.resolve_ba_kernels(True, 0)
+    assert not tba.resolve_ba_kernels(False, 8)
+    with jax.default_matmul_precision("highest"):
+        out_j, st_j = jba.bundle_adjust(
+            wide, iters=4, backend=jba.resolve_ba_backend(wide))
+    before = (tks.schur_launches, tks.cost_launches)
+    out_t, st_t = tba.bundle_adjust(
+        to_port(wide), iters=4,
+        use_kernels=tba.resolve_ba_kernels(True, 40))
+    assert (tks.schur_launches, tks.cost_launches) == before
+    np.testing.assert_array_equal(st_t.accepted.numpy(),
+                                  np.asarray(st_j.accepted))
+    np.testing.assert_allclose(st_t.cost.numpy(), np.asarray(st_j.cost),
+                               rtol=1e-3)
+    np.testing.assert_allclose(out_t.cam_pose.numpy(),
+                               np.asarray(out_j.cam_pose), atol=1e-4)
+
+
+def test_pose_information_and_frame_obs_slabs():
+    from gslam_tpu.estimation.pnp import pose_information as j_info
+    from gslam_tpu_torch.estimation.pnp import pose_information
+
+    rng = np.random.default_rng(21)
+    j, t, cam = make_arena_pair(rng)
+    # some observations of erased points and one erased frame
+    j = ja.erase_points(j, jnp.asarray([3, 17, 40], jnp.int32))
+    j = ja.erase_frame(j, jnp.asarray(4))
+    t = convert.arena_from_numpy(jfields(j), "cpu")
+    jc, tc = cameras(cam)
+    for K in (None, 25):
+        dj, wj = jba.frame_obs_slabs(j, jc, K)
+        dt, wt = tba.frame_obs_slabs(t, tc, K)
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(dt[..., :3].numpy(),
+                                      np.asarray(dj[..., :3]))
+        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-7)
+    assert wt[4].sum() == 0 and 20 < wt[0].sum() <= 25
+    dj, wj = jba.frame_obs_slabs(j, jc)
+    dt, wt = tba.frame_obs_slabs(t, tc)
+    H_j = np.asarray(jax.vmap(j_info)(j.frame_pose[:, :7], dj, wj))
+    H_t = pose_information(t.frame_pose[:, :7], dt, wt).numpy()
+    np.testing.assert_allclose(H_t, H_j, rtol=1e-4, atol=1e-5)
+    assert np.abs(H_t[4]).max() == 0 and H_t[0].trace() > 1.0
+    # one pose, as the loop closer calls it for the loop edge
+    np.testing.assert_allclose(
+        pose_information(t.frame_pose[1, :7], dt[1], wt[1]).numpy(), H_j[1],
+        rtol=1e-4, atol=1e-5)
+
+
+def test_motion_only_refine_on_a_carried_arena():
+    rng = np.random.default_rng(22)
+    j, t, cam = make_arena_pair(rng)
+    # knock the keyframes off their poses; frame 0 is the gauge
+    fp = np.asarray(j.frame_pose).copy()
+    fp[:6, :3] += rng.normal(0, 0.03, (6, 3)).astype(np.float32)
+    j = j.replace(frame_pose=jnp.asarray(fp))
+    t = convert.arena_from_numpy(jfields(j), "cpu")
+    jc, tc = cameras(cam)
+    j2 = jba.motion_only_refine(j, jc, iters=5)
+    t2 = tba.motion_only_refine(t, tc, iters=5)
+    assert_same(j2, t2, float_atol=1e-4)
+    np.testing.assert_array_equal(t2.frame_pose[0].numpy(), fp[0])
+    moved = np.abs(t2.frame_pose.numpy() - fp).max(1)
+    assert (moved[1:6] > 1e-3).all() and (moved[6:] == 0).all()
+
+
+@pytest.mark.parametrize("max_points", [4096, 32])
+def test_global_bundle_adjust_on_a_carried_arena(max_points):
+    """One joint solve (every landmark fits the budget), and the chunked
+    pass (structure-only solves over point chunks, then a motion-only
+    pass over all cameras)."""
+    rng = np.random.default_rng(23)
+    j, t, cam = make_arena_pair(rng)
+    jc, tc = cameras(cam)
+    with jax.default_matmul_precision("highest"):
+        j2, costs_j = jba.global_bundle_adjust(
+            j, jc, iters=4, max_points=max_points, sweeps=1, backend="jnp")
+    before = (tks.schur_launches, tks.cost_launches)
+    t2, costs_t = tba.global_bundle_adjust(
+        t, tc, iters=4, max_points=max_points, sweeps=1, use_kernels=True)
+    assert (tks.schur_launches, tks.cost_launches) == before   # CPU tensors
+    assert costs_t.shape == costs_j.shape == (5 * -(-80 // max_points),)
+    np.testing.assert_allclose(costs_t.numpy(), np.asarray(costs_j),
+                               rtol=1e-3)
+    assert float(costs_t[4]) < float(costs_t[0])
+    jf, tf = jfields(j2), convert.arena_to_numpy(t2)
+    np.testing.assert_allclose(tf["frame_pose"], jf["frame_pose"], atol=1e-4)
+    np.testing.assert_allclose(tf["point_xyz"], jf["point_xyz"], atol=1e-3)
+    assert np.abs(tf["point_xyz"] - jfields(j)["point_xyz"]).max() > 1e-3
+    np.testing.assert_array_equal(tf["frame_pose"][0],
+                                  jfields(j)["frame_pose"][0])
+
+
+def test_global_bundle_adjust_edges():
+    rng = np.random.default_rng(24)
+    _, t, cam = make_arena_pair(rng)
+    tc = cameras(cam)[1]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tba.global_bundle_adjust(t, tc, mesh=object())
+    from gslam_tpu_torch.map.arena import make_arena
+
+    empty = make_arena(4, 8, 16, 32, device="cpu")
+    out, costs = tba.global_bundle_adjust(empty, tc)
+    assert out is empty and costs.shape == (1,)

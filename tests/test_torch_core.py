@@ -86,3 +86,37 @@ def test_pinhole_matches_reference(rng):
     uv = rng.uniform(0, 320, size=(100, 2)).astype(np.float32)
     j, t = both(jcam.pinhole_unproject, tcam.pinhole_unproject, cam, uv)
     np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+@pytest.mark.parametrize("scale", ["tiny", "small_angle", "small_sigma",
+                                   "large"])
+def test_sim3_exp_log_match_reference(scale):
+    """sim3_exp / sim3_log against the JAX package to 1e-5, through every
+    Taylor branch of W (tiny angle, tiny log-scale, both, neither), and
+    the round trip."""
+    from gslam_tpu.core import sim3 as jsim3
+    from gslam_tpu_torch.core import sim3 as tsim3
+
+    rng = np.random.default_rng(len(scale))
+    xi = rng.normal(0, 1.0, (64, 7)).astype(np.float32)
+    xi[:, 3:6] *= 0.5                       # angles below pi
+    xi[:, 6] *= 0.7                         # scales e^-2 .. e^2
+    if scale in ("tiny", "small_angle"):
+        xi[:, 3:6] *= 1e-6
+    if scale in ("tiny", "small_sigma"):
+        xi[:, 6] *= 1e-7
+    S_j = np.asarray(jsim3.sim3_exp(jnp.asarray(xi)))
+    S_t = tsim3.sim3_exp(torch.tensor(xi))
+    np.testing.assert_allclose(S_t.numpy(), S_j, atol=1e-5)
+    np.testing.assert_allclose(
+        tsim3._sim3_W(torch.tensor(xi[:, 3:6]),
+                      torch.tensor(xi[:, 6:7])).numpy(),
+        np.asarray(jsim3._sim3_W(jnp.asarray(xi[:, 3:6]),
+                                 jnp.asarray(xi[:, 6:7]))), atol=1e-5)
+    back_j = np.asarray(jsim3.sim3_log(jnp.asarray(S_j)))
+    back_t = tsim3.sim3_log(torch.tensor(S_j)).numpy()
+    np.testing.assert_allclose(back_t, back_j, atol=1e-5)
+    np.testing.assert_allclose(back_t, xi, atol=2e-5)
+    # a zero scale: W is singular; non-finite, not an exception
+    bad = torch.tensor([[1.0, 2.0, 3.0, 1.0, 0.0, 0.0, 0.0, 0.0]])
+    assert tsim3.sim3_log(bad).shape == (1, 7)

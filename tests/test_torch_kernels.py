@@ -297,3 +297,96 @@ def test_schur_wrapper_rejects_too_many_cameras(dev):
     prob = ba_problem(np.random.default_rng(1), 33, 40, 2, dev)
     with pytest.raises(ValueError, match="cameras"):
         schur.schur_reduce_kernel(prob, torch.tensor(1e-3, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# B7 BoW tree descent
+
+
+def random_tree(rng, k, L, dev):
+    """A complete tree of random centres with duplicated siblings (tied
+    distances at every level)."""
+    from gslam_tpu_torch.ops.vocab import _level_offset
+
+    nodes = random_desc(rng, _level_offset(k, L + 1))
+    for l in range(1, L + 1):       # each level's second node = its first
+        off = _level_offset(k, l)
+        nodes[off + 1] = nodes[off]
+    return torch.as_tensor(nodes, device=dev)
+
+
+@pytest.mark.parametrize("k,L,N", [(3, 3, 173), (6, 2, 384), (8, 4, 513),
+                                   (10, 2, 1), (40, 2, 257)])
+def test_vocab_kernel_equals_plain(dev, k, L, N):
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+    from gslam_tpu_torch.ops.vocab import _level_offset, _transform_words
+
+    rng = np.random.default_rng(k * 100 + L)
+    nodes = random_tree(rng, k, L, dev)
+    desc = random_desc(rng, N)
+    # some descriptors are node centres themselves (distance 0, and tied
+    # where the centre is duplicated)
+    pick = rng.integers(0, _level_offset(k, L + 1), max(N // 3, 1))
+    desc[:len(pick)] = nodes.cpu().numpy()[pick]
+    valid = rng.uniform(size=N) > 0.15
+    d = torch.as_tensor(desc, device=dev)
+    v = torch.as_tensor(valid, device=dev)
+    before = vocab_k.launches
+    w_k = vocab_k.transform_words_kernel(nodes, d, v, k, L)
+    w_p = _transform_words(nodes, d, v, k, L)
+    torch.cuda.synchronize()
+    assert vocab_k.launches == before + 1
+    assert w_k.dtype == torch.int32 and torch.equal(w_k, w_p)
+    assert torch.equal(w_k < 0, ~v)
+    assert int(w_k.max()) < k ** L
+    again = vocab_k.transform_words_kernel(nodes, d, v, k, L)
+    assert torch.equal(again, w_k)
+
+
+def test_transform_words_routes_by_tree_layout(dev):
+    """A complete tree on the card goes through the kernel, a general
+    tree through the PyTorch descent; both give the same words when the
+    general tree spells out the complete one."""
+    from gslam_tpu_torch.ops import vocab
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+
+    rng = np.random.default_rng(9)
+    k, L, N = 5, 3, 300
+    nodes = random_tree(rng, k, L, dev)
+    n_nodes = nodes.shape[0]
+    first_leaf = vocab._level_offset(k, L)
+    voc = vocab.Vocabulary(nodes, torch.ones(k ** L, device=dev), k, L)
+    children = np.full((n_nodes, k), -1, np.int32)
+    inner = np.arange(first_leaf)
+    children[inner] = inner[:, None] * k + 1 + np.arange(k)
+    leaf_word = np.full(n_nodes, -1, np.int32)
+    leaf_word[first_leaf:] = np.arange(k ** L)
+    general = voc._replace(children=torch.as_tensor(children, device=dev),
+                           leaf_word=torch.as_tensor(leaf_word, device=dev))
+    d = torch.as_tensor(random_desc(rng, N), device=dev)
+    v = torch.ones(N, dtype=torch.bool, device=dev)
+    before = vocab_k.launches
+    w_c = vocab.transform_words(voc, d, v, use_kernels=True)
+    assert vocab_k.launches == before + 1
+    w_g = vocab.transform_words(general, d, v, use_kernels=True)
+    assert vocab_k.launches == before + 1
+    assert torch.equal(w_c, w_g)
+
+
+def test_vocab_wrapper_rejects_bad_inputs(dev):
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+
+    rng = np.random.default_rng(10)
+    nodes = random_tree(rng, 4, 2, dev)
+    d = torch.as_tensor(random_desc(rng, 7), device=dev)
+    v = torch.ones(7, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        vocab_k.transform_words_kernel(nodes[:-1], d, v, 4, 2)   # not complete
+    with pytest.raises(ValueError):
+        vocab_k.transform_words_kernel(nodes, d.long(), v, 4, 2)
+    with pytest.raises(ValueError):
+        vocab_k.transform_words_kernel(nodes, d, v.cpu(), 4, 2)
+    with pytest.raises(ValueError):
+        vocab_k.transform_words_kernel(nodes, d[:0], v[:0], 4, 2)
+    with pytest.raises(ValueError):
+        vocab_k.transform_words_kernel(nodes, d, v, 1, 2)

@@ -125,3 +125,38 @@ def test_desc_conversion_round_trips_bit_31():
     t = convert.desc_from_numpy(d, device="cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(convert.desc_to_numpy(t), d)
+
+
+@pytest.mark.parametrize("level_div", [1, 36])
+def test_word_gated_matches_reference(level_div):
+    """Word-gated matching: index for index, gated at the leaf
+    (level_div 1) and two levels up (k^2 with k = 6), unassigned (-1)
+    words never matching."""
+    from gslam_tpu.ops.matching import match_descriptors_word_gated as j_wg
+    from gslam_tpu_torch.ops.matching import match_descriptors_word_gated
+
+    rng = np.random.default_rng(level_div)
+    N, M = 150, 90
+    a = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    pick = rng.integers(0, N, M)
+    b = a[pick].copy()
+    b[:, 1] ^= (np.uint32(1) << rng.integers(0, 32, M).astype(np.uint32))
+    b[::9] = b[1]                              # ties for the ratio test
+    wa = rng.integers(0, 216, N).astype(np.int32)
+    wb = wa[pick].copy()
+    wb[::5] = rng.integers(0, 216, len(wb[::5]))
+    wa[::11] = -1
+    wb[::13] = -1
+    va, vb = rng.random(N) < 0.9, rng.random(M) < 0.9
+    mj = j_wg(jnp.asarray(a), jnp.asarray(va), jnp.asarray(wa),
+              jnp.asarray(b), jnp.asarray(vb), jnp.asarray(wb), ratio=0.9,
+              level_div=level_div)
+    mt = match_descriptors_word_gated(
+        convert.desc_from_numpy(a, "cpu"), torch.tensor(va),
+        torch.tensor(wa), convert.desc_from_numpy(b, "cpu"),
+        torch.tensor(vb), torch.tensor(wb), ratio=0.9, level_div=level_div)
+    np.testing.assert_array_equal(mt.idx.numpy(), np.asarray(mj.idx))
+    np.testing.assert_array_equal(mt.valid.numpy(), np.asarray(mj.valid))
+    np.testing.assert_array_equal(mt.dist.numpy(), np.asarray(mj.dist))
+    assert int(mt.count) == int(mj.count) > 20
+    assert mt.idx.dtype == torch.int32

@@ -16,7 +16,8 @@ the JAX package's, on the synthetic sequences of tests/test_slam_e2e.py.
   moves a few keypoints; the RANSAC draws differ).
 * The frame-store capacity edge: both packages drop the keyframes past
   ``cap_frames`` and raise the overflow flag.
-* The paths that are not ported raise NotImplementedError.
+* The paths that are not ported raise NotImplementedError; a BA window
+  wider than the Schur kernel takes runs the plain path.
 """
 
 import jax
@@ -212,6 +213,9 @@ def test_keyframe_store_full():
 @pytest.mark.parametrize("what", ["mono", "imu", "vocabulary", "pyramid",
                                   "batch"])
 def test_unported_paths_raise(what):
+    """What is not ported raises and names its ROADMAP item.  A
+    vocabulary is accepted now; behind it the IMU rotation edges of the
+    loop pose graph are what still raises."""
     _, dt = datasets(n_frames=2)
     fr = next(iter(dt))
     cfg = dict(CFG)
@@ -221,7 +225,9 @@ def test_unported_paths_raise(what):
     elif what == "batch":
         cfg["dispatch_batch"] = 4
     elif what == "vocabulary":
-        kw["vocabulary"] = object()
+        kw["vocabulary"] = convert.vocabulary_from_numpy(
+            np.zeros((3, 8), np.uint32), np.ones(2, np.float32), 2, 1,
+            device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         slam = KeyframeSLAM(dt.camera, SLAMConfig(**cfg), device="cpu",
                             **kw)
@@ -229,20 +235,33 @@ def test_unported_paths_raise(what):
             fr.depth = None
         elif what == "imu":
             fr.imu = np.zeros((5, 7), np.float32)
+        elif what == "vocabulary":
+            slam.loop_closer.close(
+                slam.arena, dt.camera, 0,
+                imu_edges=[(0, 1, np.asarray([1.0, 0, 0, 0], np.float32))])
         slam.track(fr)
 
 
 def test_wide_ba_window_with_kernels_raises():
-    """More cameras than the Schur kernel takes is refused up front,
-    never run on the plain path behind use_kernels=True."""
+    """More cameras than the Schur kernel takes no longer raises when
+    the system is built: such a window runs the plain Schur path by the
+    rule of shape, as in the JAX package (the 40-camera solve is held
+    against it in test_torch_ba.py); the kernel wrapper itself still
+    refuses what is beyond its contract."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt.ba import resolve_ba_kernels
+
     _, dt = datasets(n_frames=1)
     cfg = dict(CFG, ba_window=33, cap_frames=64)
-    with pytest.raises(NotImplementedError, match="at most 32"):
-        KeyframeSLAM(dt.camera, SLAMConfig(**cfg, use_kernels=True),
-                     device="cpu")
-    slam = KeyframeSLAM(dt.camera, SLAMConfig(**cfg, use_kernels=False),
-                        device="cpu")
-    assert slam.cfg.ba_window == 33
+    for use_kernels in (True, False):
+        slam = KeyframeSLAM(dt.camera,
+                            SLAMConfig(**cfg, use_kernels=use_kernels),
+                            device="cpu")
+        assert slam.cfg.ba_window == 33
+    assert not resolve_ba_kernels(True, 33) and resolve_ba_kernels(True, 32)
+    with pytest.raises(ValueError, match="cameras"):
+        schur._inputs(type("P", (), dict(
+            cam_pose=torch.zeros((33, 7)), obs_cam=torch.zeros((4, 2))))())
 
 
 def test_needs_a_card_unless_cpu():
