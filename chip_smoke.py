@@ -4,19 +4,31 @@
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 
-1. print the card's name and power limit; build the six CUDA sources
-   (``gslam_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel) and
-   print each kernel's register / shared-memory use;
+1. print the card's name and power limit; build the seven CUDA sources
+   (``gslam_tpu_torch/csrc/*.cu``: six with the seven ported kernels and
+   ``probe.cu``, one ``nvcc`` each, in parallel), print each kernel's
+   register / shared-memory use and B5's scratch at C = 8 and C = 32
+   (which must stay under 12 MB); then the probes: the launch floor (an
+   empty kernel, timed by graph replay like every kernel here) and the
+   card's integer rates per clock and SM (the Hamming step xor, popc,
+   add, and plain integer operations), which the operation bounds of
+   B3, B4 and B7 are stated against;
 2. the tracking step ``track_forward`` (480 x 640 image, K = 512
    keypoints, a 2048-entry map slab): hold B1 FAST+NMS, B2 BRIEF and B3
-   matcher against their plain versions, drive the step once through
-   the kernels (launch counters set to 0 just before, read just after),
+   matcher against their plain versions (B3 also at N = 333, M = 1000
+   with equal minima on both sides of its tile borders, with the valid
+   columns in one tile only and in one column only, and two calls on
+   the same inputs bit for bit), drive the step once through the
+   kernels (launch counters set to 0 just before, read just after),
    check the example's identity pose and the plain path, time it;
 3. hold B4 (gated matcher, N = 2048 map rows against M = 512 keypoints
    near their projections, gate 40 px), B5 (Schur reduction) and B6 (BA
    cost) against their plain versions on the local-BA problem of
-   ``bench.py`` (C = 8, P = 1024, O = 8), and ``bundle_adjust`` with the
-   kernels against the plain LM for 6 iterations;
+   ``bench.py`` (C = 8, P = 1024, O = 8); B5 also at C = 32, P = 1024,
+   O = 8 (the widest camera count of its contract; six cameras per
+   point, repeated cameras, pad slots) and at the loop run's C = 4,
+   P = 384, each twice for the same bits; and ``bundle_adjust`` with
+   the kernels against the plain LM for 6 iterations;
 4. drive ``KeyframeSLAM`` over the first 64 frames of the full-width
    RGB-D sequence (480 x 640 ``ring_out``, 1200 points, textured, depth;
    ``max_kps`` 512, ``local_map_size`` 2048, ``ba_points`` 1024,
@@ -24,11 +36,12 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    64), launch counters around it: B1, B2, B4, B5 and B6 all launched,
    >= 90% of frames tracked, >= 3 keyframes and local BA ran, and the
    ATE within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run;
-5. time a second, warm SLAM run with the kernels and one with the plain
-   versions (ms/frame, frames/s, split by timer section), the device
-   busy share under torch.profiler, and every kernel's device time
-   (CUDA events around replays of a CUDA graph of many calls) beside
-   its plain version and its bound;
+5. time two more, warm SLAM runs with the kernels (their ATE must equal
+   the first run's bit for bit) and one with the plain versions
+   (ms/frame, frames/s, split by timer section), the device busy share
+   under torch.profiler, and every kernel's device time (CUDA events
+   around replays of a CUDA graph of many calls) beside its plain
+   version and its bound, B5 and B3 at their extra shapes too;
 6. hold B7 (BoW tree descent) against its plain version, word for
    word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
    and at k = 8, L = 4 (4681 nodes; N = 512, and an odd N with invalid
@@ -44,8 +57,9 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
    feed frames from the far side of the ring and require BoW
    relocalization to bring the pose back through B7;
-8. print the ``kernels`` JSON line, then the device JSON as the last
-   line.
+8. print the slices' JSON lines (the probes and the extra shapes'
+   times among them), the ``kernels`` JSON line, then the device JSON
+   as the last line.
 
 Needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -53,8 +67,11 @@ printing any result.
 
 from __future__ import annotations
 
+import ctypes
+import glob
 import json
 import re
+import subprocess
 import sys
 import time
 
@@ -122,6 +139,17 @@ VOC_BIG = dict(k=8, L=4)
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # outside the tensor cores
+N_SMS = 132
+# integer rates of this card, set by phase_probe (measured: see there)
+INT_RATES = {}
+
+# extra shapes the redesigned kernels are held to: B5 at the widest
+# camera count of its contract (a global BA of 32 keyframes) and at the
+# loop run's window; B3 off the tile grid, with ties across tile borders
+SCHUR_EXTRA = {"C32_P1024_O8": dict(C=32, P=1024, O=8, window=6, pads=True),
+               "C4_P384_O8": dict(C=4, P=384, O=8, window=4, pads=False)}
+SCHUR_SCRATCH_MAX_MB = 12.0
+MATCHER_EXTRA = dict(N=333, M=1000)
 
 KERNELS = {
     "fast_nms": dict(source="gslam_tpu_torch/csrc/fastnms.cu",
@@ -198,11 +226,20 @@ def graph_ms(fn, reps: int = 50, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_words: float = 0.0,
+             n_int: float = 0.0):
     """(bound in ms, "bytes" or "operations"): the larger of the bytes
-    over the memory rate and the operations over the float32 rate."""
+    over the memory rate and the operations over their rates: ``n_ops``
+    float32 operations at the data sheet's rate, ``n_words`` Hamming
+    steps (xor, popc, add) and ``n_int`` other integer operations at
+    the rates phase_probe measured, per clock and SM, times 132 SMs and
+    the card's highest SM clock."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     to = n_ops / FP32_OPS_PER_S * 1e3
+    if n_words or n_int:
+        per_s = N_SMS * INT_RATES["max_sm_mhz"] * 1e6
+        to += (n_words / INT_RATES["hamming_steps_per_clk_sm"]
+               + n_int / INT_RATES["int_ops_per_clk_sm"]) / per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -252,10 +289,226 @@ def phase_build():
                     or "error" in line.lower():
                 log(f"  {name}.cu {entry}: "
                     f"{line.split(':', 1)[-1].strip()}")
-    for C in (8, schur.MAX_CAMS):    # B5's scratch grows as C^3 P
+    for C in (8, schur.MAX_CAMS):    # B5's scratch: the blocks' partials
         n = schur._lib().gslam_schur_scratch(C, 1024)
         log(f"  schur.cu scratch at C={C}, P=1024: {n} floats "
             f"({n * 4 / 1e6:.6f} MB)")
+    if n * 4 / 1e6 >= SCHUR_SCRATCH_MAX_MB:
+        raise AssertionError(f"B5 scratch at C={schur.MAX_CAMS}, P=1024 is "
+                             f"not under {SCHUR_SCRATCH_MAX_MB} MB")
+
+
+def sm_clocks_mhz():
+    """(current, highest) SM clock of the first card, as nvidia-smi
+    reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    cur, top = out.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def toolkit_documents():
+    """Files under the CUDA toolkit's document folders whose name says
+    programming manual (its arithmetic-instruction table gives the popc
+    rate)."""
+    found = []
+    for root in ("/usr/local/cuda/doc", "/usr/local/cuda/docs",
+                 "/usr/local/cuda/share/doc", "/usr/share/doc/cuda*"):
+        for path in glob.glob(root + "/**", recursive=True):
+            if "programming" in path.lower():
+                found.append(path)
+    return found
+
+
+def phase_probe():
+    """The launch floor (an empty kernel, timed by graph replay like
+    every kernel here) and the card's integer rates per clock and SM:
+    the Hamming step (xor, popc, add) and plain integer operations,
+    each measured with a loop of independent chains over every SM.  The
+    CUDA C++ programming manual's table gives 16 popc and 64 adds or
+    logic operations per clock and SM for compute capability 9.0; the
+    measured rates stand in where the toolkit's documents are absent."""
+    lib = build.library("probe")
+    lib.gslam_probe_empty.restype = ctypes.c_int
+    lib.gslam_probe_empty.argtypes = [ctypes.c_void_p]
+    lib.gslam_probe_int_loop.restype = ctypes.c_int
+    lib.gslam_probe_int_loop.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
+
+    def empty():
+        build.check_launch(lib.gslam_probe_empty(build.stream_ptr()),
+                           "gslam_probe_empty")
+
+    floor = [graph_ms(empty), graph_ms(empty)]
+    docs = toolkit_documents()
+    log("CUDA C++ programming manual in the toolkit's documents: "
+        + (", ".join(docs) + "; integer rates measured all the same"
+           if docs else "absent; integer rates measured"))
+    out = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    blocks, iters = N_SMS * 8, 4096
+    steps = blocks * 256 * 8 * iters
+    rates = {}
+    for label, popc in (("hamming_steps", 1), ("int_steps", 0)):
+        def loop():
+            build.check_launch(lib.gslam_probe_int_loop(
+                out.data_ptr(), blocks, iters, popc, build.stream_ptr()),
+                "gslam_probe_int_loop")
+        ms = cuda_ms(loop, reps=20, warm=3)
+        clk, top = sm_clocks_mhz()
+        rates[label] = steps / (ms * 1e-3) / (N_SMS * clk * 1e6)
+        log(f"probe {label}: {ms:.4f} ms for {steps} steps at {clk:.0f} MHz "
+            f"(highest {top:.0f} MHz): {rates[label]:.3f} per clock and SM")
+    INT_RATES.update(
+        hamming_steps_per_clk_sm=rates["hamming_steps"],
+        int_ops_per_clk_sm=2.0 * rates["int_steps"],    # xor and add
+        max_sm_mhz=top)
+    log(f"launch_floor_ms {floor[0]:.6f}/{floor[1]:.6f} (an empty kernel, "
+        "graph replay)")
+    return dict(launch_floor_ms=min(floor), **INT_RATES,
+                toolkit_documents=docs)
+
+
+def matcher_case(N, M, kind="ties", seed=0):
+    """numpy (a, valid_a, b, valid_b) for the Hamming matcher, words as
+    int32.  ``ties``: equal minima 1, 64, 128 and 256 columns apart
+    (columns duplicated across the B3 kernel's 128-column tile borders,
+    rows that sit on them) and 1, 32, 64, 128 and 256 rows apart (rows
+    duplicated across its 32-row borders, columns that sit on them),
+    noisy copies, a tenth of each side masked.  ``one_tile``: only
+    columns 130 to 139 valid (the last two where M is smaller).
+    ``one_column``: only the last column valid."""
+    rng = np.random.default_rng(seed)
+    a, b = random_words(rng, N), random_words(rng, M)
+    va, vb = rng.random(N) < 0.9, rng.random(M) < 0.9
+    if kind == "ties":
+        n_copy = min(N // 4, M)
+        src = rng.integers(0, M, n_copy)
+        a[:n_copy] = b[src]
+        a[:n_copy // 2, 0] ^= np.uint32(1) << rng.integers(
+            0, 32, n_copy // 2).astype(np.uint32)
+        rows = iter(range(N - 1, -1, -1))
+        for c, gap in ((127, 1), (100, 64), (5, 128), (40, 256), (0, 1)):
+            if c + gap < M:
+                b[c + gap] = b[c]
+                vb[c] = vb[c + gap] = True
+                for flips in (0, 2):             # rows tied at c, c + gap
+                    r = next(rows, None)
+                    if r is not None:
+                        a[r] = b[c]
+                        a[r, 3] ^= np.uint32((1 << flips) - 1)
+                        va[r] = True
+        cols = iter(range(M - 1, -1, -1))
+        for r, gap in ((31, 1), (3, 32), (9, 64), (17, 128), (21, 256)):
+            if r + gap < N - 10:
+                a[r + gap] = a[r]
+                va[r] = va[r + gap] = True
+                c = next(cols)
+                b[c] = a[r]                      # a column tied at r, r + gap
+                vb[c] = True
+    elif kind == "one_tile":
+        vb[:] = False
+        vb[130:140] = True
+        if M <= 130:
+            vb[-2:] = True
+    elif kind == "one_column":
+        vb[:] = False
+        vb[-1] = True
+    else:
+        raise ValueError(kind)
+    return a.view(np.int32), va, b.view(np.int32), vb
+
+
+def ba_case(C, P, O, seed=0, window=None, pads=False):
+    """numpy fields of a BundleProblem: C cameras along a line with small
+    rotations, P points in front of them, each point's O slots drawn
+    (with repeats) from ``window`` neighbouring cameras (all C if None),
+    slot 1 naming slot 0's camera for every fourth point; noisy
+    projections, non-uniform weights, a fixed camera and a fixed point,
+    a point behind every camera, a seventh of the slots invalid.  With
+    ``pads``, invalid slots of every other point carry the camera index
+    -1 or C, as padding does."""
+    rng = np.random.default_rng(seed)
+    window = C if window is None else min(window, C)
+    pose = np.zeros((C, 7))
+    pose[:, 0] = 0.2 * np.arange(C)
+    pose[:, 1:3] = rng.normal(0, 0.05, (C, 2))
+    q = np.tile([1.0, 0, 0, 0], (C, 1)) + rng.normal(0, 0.03, (C, 4))
+    pose[:, 3:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    first = rng.integers(0, C - window + 1, (P, 1))
+    # each point in front of the middle of its cameras
+    X = np.stack([rng.uniform(-2, 2, P) - 0.2 * (first[:, 0] + window / 2),
+                  rng.uniform(-1.5, 1.5, P), rng.uniform(3, 9, P)], -1)
+    if P > 3:
+        X[3, 2] = -5.0                       # behind every camera
+    obs_cam = (first + rng.integers(0, window, (P, O))).astype(np.int32)
+    if O > 1:
+        obs_cam[::4, 1] = obs_cam[::4, 0]
+    t, qw, qv = (pose[obs_cam][..., :3], pose[obs_cam][..., 3:4],
+                 pose[obs_cam][..., 4:])
+    v = np.broadcast_to(X[:, None], t.shape)
+    tt = 2.0 * np.cross(qv, v)
+    pc = v + qw * tt + np.cross(qv, tt) + t
+    uv = pc[..., :2] / np.maximum(pc[..., 2:], 1e-3)
+    uv += rng.normal(0, 2e-3, uv.shape)
+    valid = rng.random((P, O)) < 6 / 7
+    if pads:
+        pad = ~valid & (np.arange(P)[:, None] % 2 == 0)
+        obs_cam[pad] = np.where(rng.random(int(pad.sum())) < 0.5, -1, C)
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[0] = True
+    pt_fixed = np.zeros(P, bool)
+    pt_fixed[min(7, P - 1)] = True
+    xyz = X + rng.normal(0, 0.01, X.shape)
+    weight = rng.random((P, O)) + 0.5
+    return (pose.astype(np.float32), cam_fixed, xyz.astype(np.float32),
+            pt_fixed, obs_cam, uv.astype(np.float32), valid,
+            weight.astype(np.float32))
+
+
+def without_pad_indices(fields):
+    """``fields`` with the camera index of pad slots (outside [0, C))
+    set to 0, which the plain version can index."""
+    cam = fields[4]
+    C = fields[0].shape[0]
+    return fields[:4] + (np.where((cam < 0) | (cam >= C), 0, cam)
+                         .astype(np.int32),) + fields[5:]
+
+
+def to_problem(fields, device):
+    return ba.BundleProblem(*(torch.as_tensor(x, device=device)
+                              for x in fields))
+
+
+def assert_schur_close(out_k, out_p, what):
+    """B5's outputs against the plain version's, within
+    tests/test_pallas.py:180-191's tolerances; the max abs error of
+    each."""
+    (S1, b1, W1, Hi1, bp1), (S0, b0, W0, Hi0, bp0) = out_k, out_p
+    checks = [
+        ("S", S1, S0, 1e-4, 1e-4 * S0.abs().max().item()),
+        ("b", b1, b0, 0.0, 1e-4 * max(b0.abs().max().item(), 1e-6)),
+        ("W_e", W1.W_e, W0.W_e, 0.0, 1e-4),
+        ("Hpp_inv", Hi1, Hi0, 1e-3, 1e-3),
+        ("bp", bp1, bp0, 0.0, 1e-5)]
+    errs = {}
+    for name, k, p, rtol, atol in checks:
+        errs[name] = (k - p).abs().max().item()
+        torch.testing.assert_close(k, p, rtol=rtol, atol=atol,
+                                   msg=f"B5 {name} disagrees ({what})")
+    return errs
+
+
+def assert_same_bits(fn, what):
+    """Two calls of ``fn`` return the same bits in every tensor."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    flat = lambda out: [t for x in out                      # noqa: E731
+                        for t in (x if isinstance(x, tuple) else (x,))]
+    if not all(torch.equal(x, y) for x, y in zip(flat(first), flat(again))):
+        raise AssertionError(f"{what}: two runs on the same inputs differ")
 
 
 def phase_check(inputs):
@@ -310,9 +563,32 @@ def phase_check(inputs):
         f"{int(m_k.count)} matches, decisions equal {same}")
     if err != 0.0 or not same:
         raise AssertionError("matcher kernel disagrees with plain version")
+    assert_same_bits(lambda: matcher.hamming_top2_kernel(
+        desc, valid, fdesc, kvalid), "B3 matcher")
     rec["matcher"] = dict(max_abs_err=err,
                           args=(desc, valid, fdesc, kvalid))
     rec["fast_nms"]["args"] = (img,)
+
+    # B3 off the tile grid: ties across tile borders, a lone valid tile,
+    # a lone valid column
+    for kind in ("ties", "one_tile", "one_column"):
+        args = [torch.as_tensor(x, device=DEVICE)
+                for x in matcher_case(**MATCHER_EXTRA, kind=kind, seed=5)]
+        top_k = matcher.hamming_top2_kernel(*args)
+        top_p = hamming_top2(*args)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(top_k, top_p))
+        tied = int((top_p[0] == top_p[1]).sum())
+        log(f"B3 matcher N={MATCHER_EXTRA['N']} M={MATCHER_EXTRA['M']} "
+            f"{kind}: max_abs_err {err:.3g}, {tied} rows with tied minima")
+        if err != 0.0 or (kind == "ties" and tied < 8):
+            raise AssertionError(f"matcher kernel disagrees with plain "
+                                 f"version ({kind})")
+        assert_same_bits(lambda: matcher.hamming_top2_kernel(*args),
+                         f"B3 matcher ({kind})")
+        if kind == "ties":
+            rec["matcher_extra"] = dict(max_abs_err=err, args=tuple(args))
     return rec
 
 
@@ -480,14 +756,10 @@ def phase_kernel_times(rec, launched):
     # (2 ops each), 1 compare
     brief_ops = Kn * 256 * 31
     brief_bytes = 4 * (blur.numel() + Kn * 4 + 256 * 4) + Kn * 32
-    N, Mb = desc.shape[0], fdesc.shape[0]
-    # per pair: 8 xor, 8 popc, 8 sums, then top-2 and column compares
-    match_ops = N * Mb * (24 + 4)
-    match_bytes = (N + Mb) * (32 + 1) + N * 12 + Mb * 4
     work = {
         "fast_nms": (3 * 4 * n_px, fast_ops),
         "brief": (brief_bytes, brief_ops),
-        "matcher": (match_bytes, match_ops),
+        "matcher": matcher_work(desc.shape[0], fdesc.shape[0]),
     }
     calls = {
         "fast_nms": (lambda: fastnms.fast_nms_raw(img, THRESH),
@@ -499,6 +771,14 @@ def phase_kernel_times(rec, launched):
                     lambda: hamming_top2(desc, valid, fdesc, kvalid)),
     }
     return time_kernels(calls, work, rec, launched)
+
+
+def matcher_work(N, M):
+    """(bytes, float operations, Hamming steps, other integer
+    operations) of one B3 call: per pair 8 steps (xor, popc, add), then
+    4 top-2 and column compares."""
+    return ((N + M) * (32 + 1) + N * 12 + M * 4, 0, N * M * 8,
+            N * M * 4)
 
 
 def gated_inputs():
@@ -571,25 +851,36 @@ def phase_check_slam_kernels():
     c1 = schur.ba_cost_kernel(prob, 0.01)
     c0 = ba.ba_cost(prob, 0.01)
     torch.cuda.synchronize()
-    # tests/test_pallas.py:180-191's tolerances, and rtol 1e-5 for B6
-    checks = [
-        ("S", S1, S0, 1e-4, 1e-4 * S0.abs().max().item()),
-        ("b", b1, b0, 0.0, 1e-4 * max(b0.abs().max().item(), 1e-6)),
-        ("W_e", W1.W_e, W0.W_e, 0.0, 1e-4),
-        ("Hpp_inv", Hi1, Hi0, 1e-3, 1e-3),
-        ("bp", bp1, bp0, 0.0, 1e-5),
-        ("cost", c1, c0, 1e-5, 0.0)]
-    errs = {}
-    for name, k, p, rtol, atol in checks:
-        errs[name] = (k - p).abs().max().item()
-        torch.testing.assert_close(k, p, rtol=rtol, atol=atol,
-                                   msg=f"B5/B6 {name} disagrees")
+    errs = assert_schur_close((S1, b1, W1, Hi1, bp1),
+                              (S0, b0, W0, Hi0, bp0), "C=8, P=1024, O=8")
+    errs["cost"] = (c1 - c0).abs().max().item()
+    torch.testing.assert_close(c1, c0, rtol=1e-5, atol=0.0,
+                               msg="B6 cost disagrees")
     log("B5 schur / B6 cost vs plain (C=8, P=1024, O=8): max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    assert_same_bits(lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
+                     "B5 schur")
     rec["schur"] = dict(max_abs_err=max(v for k, v in errs.items()
                                         if k != "cost"),
                         args=(prob, lam))
     rec["ba_cost"] = dict(max_abs_err=errs["cost"], args=(prob,))
+
+    # B5 at the widest camera count of its contract and at the loop
+    # run's window, few cameras per point, repeated cameras, pad slots
+    for label, case in SCHUR_EXTRA.items():
+        fields = ba_case(**case, seed=1)
+        wide = to_problem(fields, DEVICE)
+        plain = to_problem(without_pad_indices(fields), DEVICE)
+        out_k = schur.schur_reduce_kernel(wide, lam, 0.01)
+        out_p = ba.schur_reduce(plain, lam, 0.01)
+        torch.cuda.synchronize()
+        e = assert_schur_close(out_k, out_p, label)
+        log(f"B5 schur vs plain ({label}): max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+        assert_same_bits(lambda: schur.schur_reduce_kernel(wide, lam, 0.01),
+                         f"B5 schur ({label})")
+        rec["schur_" + label] = dict(max_abs_err=max(e.values()),
+                                     args=(wide, lam), plain=plain)
 
     out_k, st_k = ba.bundle_adjust(prob, iters=6, use_kernels=True)
     out_p, st_p = ba.bundle_adjust(prob, iters=6, use_kernels=False)
@@ -630,6 +921,15 @@ def run_slam(camera, frames, use_kernels=True, seed=0):
     return slam, time.perf_counter() - t0
 
 
+def slam_metrics(slam, frames):
+    """Trajectory metrics of a run over ``frames`` against their ground
+    truth."""
+    ts = np.asarray([fr.timestamp for fr in frames])
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    return evaluate_trajectory(ts, slam.positions(), ts, gt,
+                               with_scale=False)
+
+
 def phase_slam(camera, frames):
     """The SLAM main path once through the kernels, counters around it;
     tracking, keyframe, BA and ATE gates."""
@@ -647,12 +947,10 @@ def phase_slam(camera, frames):
                   for st in slam.stats)
     n_kf = slam._n_frames_host
     ba_runs = slam.timer.stats().get("slam/local_ba", {}).get("count", 0)
-    ts = np.asarray([fr.timestamp for fr in frames])
-    gt = np.stack([fr.gt_pose[:3] for fr in frames])
     pos = slam.positions()
-    m = evaluate_trajectory(ts, pos, ts, gt, with_scale=False)
+    m = slam_metrics(slam, frames)
     log(f"SLAM: {tracked}/{len(frames)} frames tracked, {n_kf} keyframes, "
-        f"{ba_runs} local BA runs, ATE {m.ate_rmse:.6f} m (gate "
+        f"{ba_runs} local BA runs, ATE {m.ate_rmse:.8f} m (gate "
         f"{ATE_GATE:.4f} m; JAX reference {REF_ATE:.6f} m), RPE "
         f"{m.rpe_rmse:.6f} m; inliers "
         f"{[st['n_inliers'] for st in slam.stats]}")
@@ -677,14 +975,21 @@ def split_ms(slam, n):
     return out
 
 
-def phase_slam_timing(camera, frames):
-    """Warm runs in turns (kernels, plain, kernels) and a profile."""
+def phase_slam_timing(camera, frames, first_ate):
+    """Warm runs in turns (kernels, plain, kernels) and a profile; the
+    runs with the kernels must repeat the first run's ATE bit for bit
+    (no float atomics anywhere on the path)."""
     n = len(frames)
     runs = {}
     for label, uk in (("kernels", True), ("plain", False),
                       ("kernels2", True)):
         slam, secs = run_slam(camera, frames, use_kernels=uk)
         runs[label] = (secs * 1e3 / n, split_ms(slam, n))
+        ate = slam_metrics(slam, frames).ate_rmse
+        if uk and ate != first_ate:
+            raise AssertionError(f"SLAM {label}: ATE {ate!r} m differs from "
+                                 f"the first run's {first_ate!r} m")
+        log(f"SLAM {label}: ATE {ate!r} m")
         log(f"SLAM {label}: {secs * 1e3 / n:.3f} ms/frame "
             f"({n / secs:.2f} frames/s); split ms/frame: "
             + ", ".join(f"{k} {v:.3f}" for k, v in runs[label][1].items())
@@ -705,6 +1010,25 @@ def phase_slam_timing(camera, frames):
                 plain_split_ms_per_frame=runs["plain"][1], profile=prof)
 
 
+def schur_work(prob):
+    """(bytes, float operations) of one B5 call on ``prob``."""
+    C = prob.cam_pose.shape[0]
+    P, O = prob.obs_cam.shape
+    n_obs = int(prob.obs_valid.sum())
+    # distinct cameras per point: the Schur correction's camera pairs
+    cams = torch.zeros((P, C), dtype=torch.bool, device=DEVICE)
+    cams[torch.arange(P, device=DEVICE)[:, None].expand(P, O),
+         prob.obs_cam.long().clamp(0, C - 1)] = prob.obs_valid
+    pairs = int((cams.sum(1) ** 2).sum())
+    # per observation: residual and weight (34), Jacobians (30), Hpp
+    # and bp (45), W_e (72), Y = W_e Hpp^-1 (90), Hcc (84) and b (40);
+    # per point the 3x3 inverse (40); per camera pair of a point the
+    # 6x6 block of U V^T (216)
+    n_bytes = (C * 16 * 4 + P * 16 + P * O * 16             # inputs
+               + P * 48 + P * O * 72 + (36 * C * C + 42 * C) * 4)
+    return n_bytes, n_obs * 395 + P * 40 + pairs * 216
+
+
 def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     """B4, B5 and B6 device times beside their plain versions, at the
     SLAM path's shapes, with bounds from this run's inputs."""
@@ -715,28 +1039,16 @@ def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     C = prob.cam_pose.shape[0]
     P, O = prob.obs_cam.shape
     n_obs = int(prob.obs_valid.sum())
-    # distinct cameras per point: the Schur correction's camera pairs
-    cams = torch.zeros((P, C), dtype=torch.bool, device=DEVICE)
-    cams[torch.arange(P, device=DEVICE)[:, None].expand(P, O),
-         prob.obs_cam.long()] = prob.obs_valid
-    pairs = int((cams.sum(1) ** 2).sum())
     # B4: per pair the gate (2 subtractions, 2 products, 1 sum, 1
-    # compare); per pair inside the gate 8 xor + 8 popc + 8 sums and 3
-    # top-2 compares
+    # compare: float operations); per pair inside the gate 8 Hamming
+    # steps (xor, popc, add) and 3 top-2 compares
     d2 = ((uv_map[:, None] - uv_kp[None]) ** 2).sum(-1)
     n_gated = int((v_map[:, None] & v_kp[None] & (d2 <= gate2)).sum())
-    gated_work = ((N + Mk) * (32 + 8 + 1) + N * 12,
-                  N * Mk * 6 + n_gated * 27)
-    # B5 per observation: residual and weight (34), Jacobians (30), Hpp
-    # and bp (45), W_e (72), Y = W_e Hpp^-1 (90), Hcc (84) and b (40);
-    # per point the 3x3 inverse (40); per camera pair of a point the
-    # 6x6 block of U V^T (216)
-    schur_bytes = (C * 16 * 4 + P * 16 + P * O * 16             # inputs
-                   + P * 48 + P * O * 72 + (36 * C * C + 42 * C) * 4)
-    schur_work = (schur_bytes, n_obs * 395 + P * 40 + pairs * 216)
+    gated_work = ((N + Mk) * (32 + 8 + 1) + N * 12, N * Mk * 6,
+                  n_gated * 8, n_gated * 3)
     # B6 per observation: residual, norm and Huber weight, w e^2 (40)
     cost_work = (C * 64 + P * 12 + P * O * 16 + 4, n_obs * 40)
-    work = {"gated_matcher": gated_work, "schur": schur_work,
+    work = {"gated_matcher": gated_work, "schur": schur_work(prob),
             "ba_cost": cost_work}
     calls = {
         "gated_matcher": (
@@ -940,11 +1252,12 @@ def phase_loop():
 
 
 def descent_work(voc, N):
-    """(bytes, operations) of one descent: descriptors and validity in,
-    words out, the nodes touched (at most k L per descriptor, at most the
-    table); 8 xor-popcounts per descriptor, level and child."""
+    """(bytes, float operations, Hamming steps) of one descent:
+    descriptors and validity in, words out, the nodes touched (at most
+    k L per descriptor, at most the table); 8 steps (xor, popc, add) per
+    descriptor, level and child."""
     touched = min(voc.node_desc.shape[0], N * voc.k * voc.L)
-    return N * 32 + touched * 32 + N * 5, N * voc.k * voc.L * 8
+    return N * 32 + touched * 32 + N * 5, 0, N * voc.k * voc.L * 8
 
 
 def phase_vocab_kernel_times(rec_v, launched, n_keyframes):
@@ -970,28 +1283,59 @@ def phase_vocab_kernel_times(rec_v, launched, n_keyframes):
     return out
 
 
+def time_pair(kfn, pfn, work):
+    """Device times of a kernel and its plain version by CUDA graph
+    replay, in turns (plain, kernel, kernel, plain), and the bound of
+    ``work`` (the arguments of bound_ms)."""
+    p1 = graph_ms(pfn)
+    k1 = graph_ms(kfn)
+    k2 = graph_ms(kfn)
+    p2 = graph_ms(pfn)
+    b_ms, b_by = bound_ms(*work)
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                bound_by=b_by), (k1, k2, p1, p2)
+
+
 def time_kernels(calls, work, rec, launched, per=None):
-    """Device time of each kernel and its plain version (CUDA graph
-    replay, in turns: plain, kernel, kernel, plain) and the kernel's
-    eager call from Python; the kernels-line records."""
+    """Device time of each kernel and its plain version (time_pair) and
+    the kernel's eager call from Python; the kernels-line records."""
     out = []
     for name, (kfn, pfn) in calls.items():
-        p1 = graph_ms(pfn)
-        k1 = graph_ms(kfn)
-        k2 = graph_ms(kfn)
-        p2 = graph_ms(pfn)
+        t, (k1, k2, p1, p2) = time_pair(kfn, pfn, work[name])
         eager = cuda_ms(kfn)
-        b_ms, b_by = bound_ms(*work[name])
         out.append(dict(name=name, route="cuda", **KERNELS[name],
                         launches=launched[name],
-                        max_abs_err=rec[name]["max_abs_err"],
-                        ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        max_abs_err=rec[name]["max_abs_err"], **t,
+                        library_ms=None))
         log(f"{name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
             f"{p2:.4f} ms (device, graph replay); eager call "
-            f"{eager:.4f} ms; bound {b_ms:.5f} ms ({b_by}; "
-            f"{work[name][0]} bytes, {work[name][1]} ops); launches "
+            f"{eager:.4f} ms; bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}; work {work[name]}); launches "
             f"{launched[name]}" + (f" ({per[name]})" if per else ""))
+    return out
+
+
+def phase_extra_kernel_times(rec):
+    """B5 and B3 at their extra shapes: device times beside the plain
+    versions and the bounds, for the lines before the kernels line."""
+    pairs = {}
+    for label in SCHUR_EXTRA:
+        entry = rec["schur_" + label]
+        prob, lam = entry["args"]
+        pairs["schur_" + label] = (
+            entry, lambda p=prob: schur.schur_reduce_kernel(p, lam, 0.01),
+            lambda p=entry["plain"]: ba.schur_reduce(p, lam, 0.01),
+            schur_work(prob))
+    entry = rec["matcher_extra"]
+    pairs["matcher_N{N}_M{M}".format(**MATCHER_EXTRA)] = (
+        entry, lambda: matcher.hamming_top2_kernel(*entry["args"]),
+        lambda: hamming_top2(*entry["args"]), matcher_work(**MATCHER_EXTRA))
+    out = {}
+    for label, (entry, kfn, pfn, work) in pairs.items():
+        out[label], ks = time_pair(kfn, pfn, work)
+        out[label]["max_abs_err"] = entry["max_abs_err"]
+        log(f"{label}: kernel {ks[0]:.4f}/{ks[1]:.4f} ms, plain {ks[2]:.4f}/"
+            f"{ks[3]:.4f} ms; bound {out[label]['bound_ms']:.5f} ms")
     return out
 
 
@@ -1011,6 +1355,8 @@ def main() -> int:
     t = time.perf_counter()
     phase_build()
     t = phase("build", t)
+    probe = phase_probe()
+    t = phase("probe", t)
     inputs = example_inputs(H, W, M, K, device=DEVICE)
     torch.cuda.synchronize()
     rec = phase_check(inputs)
@@ -1033,7 +1379,7 @@ def main() -> int:
     camera, frames = load_frames()
     launched_slam, slam_checks = phase_slam(camera, frames)
     t = phase("KeyframeSLAM main path", t)
-    slam_times = phase_slam_timing(camera, frames)
+    slam_times = phase_slam_timing(camera, frames, slam_checks["ate_m"])
     t = phase("KeyframeSLAM timing", t)
     del frames
     rec_v = phase_check_vocab()
@@ -1052,7 +1398,9 @@ def main() -> int:
     b7, b7_big = phase_vocab_kernel_times(rec_v, launched,
                                           loop_run["keyframes"])
     kern.append(b7)
+    extra = phase_extra_kernel_times(rec)
     t = phase("kernel times", t)
+    log(json.dumps({"probe": probe, "kernels_at_extra_shapes": extra}))
     log(json.dumps({"slice": "track_forward", "shape": [H, W],
                     "map": M, "kps": K, "ransac_b": B,
                     "ms_per_frame": min(ms_k, ms_k2),

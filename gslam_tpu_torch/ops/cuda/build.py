@@ -24,7 +24,9 @@ from gslam_tpu_torch.utils.platform import nvcc_path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fastnms", "brief", "matcher", "gated", "schur", "vocab")
+# the six kernel sources, and the measurement probes (an empty kernel
+# and two integer loops; not ported kernels)
+SOURCES = ("fastnms", "brief", "matcher", "gated", "schur", "vocab", "probe")
 
 # -fmad=false: no a*b+c contraction, so float products and sums round
 # exactly as the plain PyTorch versions' separate operations do

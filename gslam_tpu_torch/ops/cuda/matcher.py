@@ -32,6 +32,8 @@ gated_launches = 0   # B4 kernel launches since the last reset
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("matcher")
+    lib.gslam_match_scratch.restype = ctypes.c_longlong
+    lib.gslam_match_scratch.argtypes = [ctypes.c_int] * 2
     fn = lib.gslam_match_hamming
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
@@ -71,11 +73,14 @@ def hamming_top2_kernel(desc_a: torch.Tensor, valid_a: torch.Tensor,
     second = torch.empty(N, dtype=torch.float32, device=dev)
     idx = torch.empty(N, dtype=torch.int32, device=dev)
     back = torch.empty(M, dtype=torch.int32, device=dev)
-    keys = torch.empty(M, dtype=torch.int32, device=dev)
-    err = _lib().gslam_match_hamming(
+    lib = _lib()
+    scratch = torch.empty(int(lib.gslam_match_scratch(N, M)),
+                          dtype=torch.int32, device=dev)
+    err = lib.gslam_match_hamming(
         desc_a.data_ptr(), valid_a.data_ptr(), desc_b.data_ptr(),
         valid_b.data_ptr(), N, M, best.data_ptr(), second.data_ptr(),
-        idx.data_ptr(), back.data_ptr(), keys.data_ptr(), build.stream_ptr())
+        idx.data_ptr(), back.data_ptr(), scratch.data_ptr(),
+        build.stream_ptr())
     build.check_launch(err, "gslam_match_hamming")
     launches += 1
     return best, second, idx, back

@@ -21,6 +21,8 @@ from gslam_tpu_torch.opt.ba import (
     MAX_CAMS, BundleProblem, SchurW, ba_cost, schur_reduce,
 )
 
+MAX_OBS = 1024       # observation slots per point the B5 kernel takes
+
 schur_launches = 0   # B5 launches since the last reset
 cost_launches = 0    # B6 launches since the last reset
 
@@ -73,6 +75,9 @@ def schur_reduce_kernel(problem: BundleProblem, lam: torch.Tensor,
     if problem.cam_pose.device.type == "cpu":
         return schur_reduce(problem, lam, huber_delta)
     a, C, P, O = _inputs(problem)
+    if O > MAX_OBS:
+        raise ValueError(f"the Schur kernel takes at most {MAX_OBS} "
+                         f"observation slots per point, got {O}")
     dev = problem.cam_pose.device
     lam_t = torch.as_tensor(lam, dtype=torch.float32, device=dev)
     build.check_tensor(lam_t, "lam", torch.float32, ())

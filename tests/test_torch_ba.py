@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ba_case, without_pad_indices
 from gslam_tpu.map import arena as ja
 from gslam_tpu.opt import ba as jba
 from gslam_tpu.ops.pallas import schur as jps
@@ -67,6 +68,37 @@ def test_schur_reduce_matches_reference(C, P, O):
     out = tks.schur_reduce_kernel(to_port(prob), torch.tensor(LAM), HD)
     assert tks.schur_launches == before     # CPU tensors: plain version
     check_schur(out, ref)
+
+
+@pytest.mark.parametrize("C,P,O,window,pads", [
+    (32, 96, 8, 5, True), (32, 96, 5, 5, True), (4, 96, 8, 4, False),
+    (8, 61, 5, 3, True), (32, 40, 16, 32, False), (2, 9, 40, 2, True)])
+def test_schur_reduce_at_the_kernel_cases_matches_reference(C, P, O, window,
+                                                            pads):
+    """The cases the B5 kernel is held to on the card, at CPU sizes: few
+    cameras per point at the widest camera count, one camera in two
+    slots, O off the warp size, pad slots with the camera index -1 or C
+    (set to camera 0 for the port's plain version, whose gather does not
+    clamp), many slots per point.  The jnp schur_reduce against the
+    port's plain version, within tests/test_pallas.py's tolerances (S
+    rtol 1e-4 and atol 1e-4 of max |S|; b atol 1e-4 of max |b|; W_e atol
+    1e-4; Hpp^-1 rtol and atol 1e-3; bp atol 1e-5)."""
+    fields = ba_case(C, P, O, seed=C + P + O, window=window, pads=pads)
+    assert (fields[4][::4, 0] == fields[4][::4, 1])[
+        fields[6][::4, :2].all(1)].all()          # a camera in two slots
+    if pads:
+        bad = (fields[4] < 0) | (fields[4] >= C)
+        assert bad.any() and not (bad & fields[6]).any()
+    with jax.default_matmul_precision("highest"):
+        ref = jba.schur_reduce(jba.BundleProblem(*map(jnp.asarray, fields)),
+                               jnp.float32(LAM), HD)
+    out = tks.schur_reduce_kernel(
+        convert.bundle_problem_from_numpy(list(without_pad_indices(fields)),
+                                          device="cpu"),
+        torch.tensor(LAM), HD)
+    check_schur(out, ref)
+    np.testing.assert_array_equal(
+        np.asarray(ref[2].W_e)[~fields[6]], 0.0)   # pads couple nothing
 
 
 def test_schur_reduce_matches_pallas_interpret():

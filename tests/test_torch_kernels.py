@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    assert_schur_close, ba_case, matcher_case, to_problem,
+    without_pad_indices,
+)
 from gslam_tpu_torch.ops import frontend, matching
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
 
@@ -84,7 +88,7 @@ def random_desc(rng, n):
 
 
 @pytest.mark.parametrize("N,M", [(2048, 512), (100, 300), (1, 2),
-                                 (333, 1000)])
+                                 (333, 1000), (512, 256)])
 def test_matcher_kernel_matches_plain(dev, N, M):
     rng = np.random.default_rng(3)
     a = random_desc(rng, N)
@@ -112,6 +116,33 @@ def test_matcher_kernel_matches_plain(dev, N, M):
         assert torch.equal(m_k.idx, m_p.idx)
         assert torch.equal(m_k.valid, m_p.valid)
         assert torch.equal(m_k.dist, m_p.dist)
+
+
+@pytest.mark.parametrize("kind", ["ties", "one_tile", "one_column"])
+@pytest.mark.parametrize("N,M", [(333, 1000), (2048, 512), (512, 256),
+                                 (65, 129), (40, 3), (1, 2)])
+def test_matcher_kernel_across_tile_borders(dev, N, M, kind):
+    """Equal minima 1 to 256 columns and rows apart (on both sides of the
+    kernel's 128-column and 32-row tile borders), valid columns in one
+    tile or one column only, masked rows and columns, shapes off the
+    tile grid: equal to the plain version value for value, and the same
+    bits from run to run."""
+    args = [torch.as_tensor(x, device=dev)
+            for x in matcher_case(N, M, kind, seed=N + M)]
+    out_k = matcher.hamming_top2_kernel(*args)
+    out_p = matching.hamming_top2(*args)
+    again = matcher.hamming_top2_kernel(*args)
+    torch.cuda.synchronize()
+    for k, p, k2 in zip(out_k, out_p, again):
+        assert torch.equal(k, p.to(k.dtype))
+        assert torch.equal(k, k2)
+    for mutual in (True, False):
+        m_k = matcher.match_hamming(*args, max_dist=300.0, ratio=1.0,
+                                    mutual=mutual)
+        m_p = matching.match_descriptors(*args, max_dist=300.0, ratio=1.0,
+                                         mutual=mutual)
+        assert torch.equal(m_k.idx, m_p.idx)
+        assert torch.equal(m_k.valid, m_p.valid)
 
 
 def test_matcher_masked_column_points_to_row0(dev):
@@ -279,6 +310,47 @@ def test_schur_and_cost_kernels_clamp_pad_camera_index(dev):
     torch.testing.assert_close(cost_k, cost_p, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("C,P,O,window,pads", [
+    (32, 1024, 8, 6, True), (32, 96, 8, 5, True), (4, 384, 8, 4, False),
+    (8, 61, 5, 3, True), (32, 300, 16, 32, False), (2, 9, 300, 2, True),
+    (2, 5, 600, 2, True)])
+def test_schur_kernel_sparse_repeated_and_padded(dev, C, P, O, window, pads):
+    """Few cameras per point, one camera in two slots, pad slots with the
+    camera index -1 or C, O off the warp size, P off the group size, more
+    slots than a block has threads: within tests/test_pallas.py's
+    tolerances of the plain version (pads set to camera 0 there), and
+    the same bits in every output from run to run."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt import ba
+
+    fields = ba_case(C, P, O, seed=C + P + O, window=window, pads=pads)
+    lam = torch.tensor(1e-3, device=dev)
+    prob = to_problem(fields, dev)
+    out_k = schur.schur_reduce_kernel(prob, lam, 0.01)
+    again = schur.schur_reduce_kernel(prob, lam, 0.01)
+    plain = to_problem(without_pad_indices(fields), dev)
+    out_p = ba.schur_reduce(plain, lam, 0.01)
+    torch.cuda.synchronize()
+    assert_schur_close(out_k, out_p, f"C={C}, P={P}, O={O}")
+    for x, y in zip((out_k[0], out_k[1], out_k[2].W_e, out_k[3], out_k[4]),
+                    (again[0], again[1], again[2].W_e, again[3], again[4])):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(schur.ba_cost_kernel(prob, 0.01),
+                               ba.ba_cost(plain, 0.01), rtol=1e-5, atol=0)
+
+
+def test_schur_scratch_stays_small(dev):
+    """The scratch is the blocks' partials: under 12 MB at the widest
+    camera count, and no larger for sixteen times the points."""
+    from gslam_tpu_torch.ops.cuda import schur
+
+    lib = schur._lib()
+    at_32 = lib.gslam_schur_scratch(32, 1024) * 4
+    assert at_32 < 12e6
+    assert lib.gslam_schur_scratch(32, 16384) * 4 == at_32
+    assert lib.gslam_schur_scratch(8, 1024) * 4 < 3e6
+
+
 def test_bundle_adjust_kernels_follow_plain_lm_path(dev):
     from gslam_tpu_torch.opt import ba
 
@@ -296,6 +368,9 @@ def test_schur_wrapper_rejects_too_many_cameras(dev):
 
     prob = ba_problem(np.random.default_rng(1), 33, 40, 2, dev)
     with pytest.raises(ValueError, match="cameras"):
+        schur.schur_reduce_kernel(prob, torch.tensor(1e-3, device=dev))
+    prob = to_problem(ba_case(2, 3, schur.MAX_OBS + 1), dev)
+    with pytest.raises(ValueError, match="slots"):
         schur.schur_reduce_kernel(prob, torch.tensor(1e-3, device=dev))
 
 

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import matcher_case
 from gslam_tpu.ops import matching as jm
+from gslam_tpu.ops.pallas.matcher import _matcher_call
 from gslam_tpu_torch import convert
 from gslam_tpu_torch.ops import matching as tm
 from gslam_tpu_torch.ops.cuda import matcher
@@ -103,6 +105,44 @@ def test_top2_ties_and_masked_columns():
     np.testing.assert_array_equal(second.numpy(), srt[:, 1])
     np.testing.assert_array_equal(back.numpy(), D.argmin(0))
     assert back[9] == 0                     # a masked column -> row 0
+
+
+@pytest.mark.parametrize("N,M,kind", [
+    (333, 1000, "ties"), (512, 256, "ties"), (65, 129, "ties"),
+    (40, 3, "ties"), (1, 2, "ties"), (333, 1000, "one_tile"),
+    (512, 256, "one_tile"), (333, 1000, "one_column"),
+    (512, 256, "one_column")])
+def test_top2_at_the_kernel_cases_matches_reference(N, M, kind):
+    """The cases the B3 kernel is held to on the card (equal minima 1 to
+    256 columns and rows apart, valid columns in one tile or one column
+    only, masked rows and columns, shapes off the tile grid; N = 2048 x
+    M = 512 cut to 512 x 256 for the CPU): the port's plain version
+    against the TPU kernel in interpret mode, value for value, and the
+    match decisions against the jnp matcher with the ratio test open
+    (ties pass it)."""
+    a, va, b, vb = matcher_case(N, M, kind, seed=N + M)
+    ja, jb = jnp.asarray(a.view(np.uint32)), jnp.asarray(b.view(np.uint32))
+    ref = _matcher_call(ja, jnp.asarray(va), jb, jnp.asarray(vb),
+                        interpret=True)
+    args = (torch.as_tensor(a), torch.as_tensor(va), torch.as_tensor(b),
+            torch.as_tensor(vb))
+    out = matcher.hamming_top2_kernel(*args)      # CPU: the plain version
+    for name, t, j in zip(("best", "second", "idx", "back"), out, ref):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    for mutual in (True, False):
+        m_j = jm.match_descriptors(ja, jnp.asarray(va), jb, jnp.asarray(vb),
+                                   max_dist=300.0, ratio=1.0, mutual=mutual)
+        m_t = tm.match_descriptors(*args, max_dist=300.0, ratio=1.0,
+                                   mutual=mutual)
+        np.testing.assert_array_equal(m_t.idx.numpy(), np.asarray(m_j.idx))
+        np.testing.assert_array_equal(m_t.valid.numpy(),
+                                      np.asarray(m_j.valid))
+        np.testing.assert_array_equal(m_t.dist.numpy(), np.asarray(m_j.dist))
+    if kind == "ties" and N > 8:
+        best, second = out[0].numpy(), out[1].numpy()
+        assert ((best == second) & (best < 257)).sum() >= 4
+    if kind != "ties":                       # masked columns -> row 0
+        assert (out[3].numpy()[~vb] == 0).all()
 
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
