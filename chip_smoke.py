@@ -14,34 +14,41 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    add, and plain integer operations), which the operation bounds of
    B3, B4 and B7 are stated against;
 2. the tracking step ``track_forward`` (480 x 640 image, K = 512
-   keypoints, a 2048-entry map slab): hold B1 FAST+NMS, B2 BRIEF and B3
-   matcher against their plain versions (B3 also at N = 333, M = 1000
-   with equal minima on both sides of its tile borders, with the valid
-   columns in one tile only and in one column only, and two calls on
-   the same inputs bit for bit), drive the step once through the
-   kernels (launch counters set to 0 just before, read just after),
-   check the example's identity pose and the plain path, time it;
+   keypoints, a 2048-entry map slab): hold B1 FAST+NMS (bit for bit on
+   both maps, twice for the same bits), B2 BRIEF and B3 matcher against
+   their plain versions (B3 also at N = 333, M = 1000 with equal minima
+   on both sides of its tile borders, with the valid columns in one
+   tile only and in one column only, and two calls on the same inputs
+   bit for bit), drive the step once through the kernels (launch
+   counters set to 0 just before, read just after), check the
+   example's identity pose and the plain path, time it;
 3. hold B4 (gated matcher, N = 2048 map rows against M = 512 keypoints
-   near their projections, gate 40 px), B5 (Schur reduction) and B6 (BA
+   near their projections, gate 40 px; also at the loop run's N = 768,
+   M = 384 and at M = 2500, more keypoints than it stages at once; each
+   twice for the same bits), B5 (Schur reduction) and B6 (BA
    cost) against their plain versions on the local-BA problem of
    ``bench.py`` (C = 8, P = 1024, O = 8); B5 also at C = 32, P = 1024,
    O = 8 (the widest camera count of its contract; six cameras per
    point, repeated cameras, pad slots) and at the loop run's C = 4,
    P = 384, each twice for the same bits; and ``bundle_adjust`` with
    the kernels against the plain LM for 6 iterations;
-4. drive ``KeyframeSLAM`` over the first 64 frames of the full-width
-   RGB-D sequence (480 x 640 ``ring_out``, 1200 points, textured, depth;
-   ``max_kps`` 512, ``local_map_size`` 2048, ``ba_points`` 1024,
-   ``ba_window`` 8, ``ba_iters`` 6, ``kf_max_gap`` 8, ``cap_frames``
-   64), launch counters around it: B1, B2, B4, B5 and B6 all launched,
-   >= 90% of frames tracked, >= 3 keyframes and local BA ran, and the
-   ATE within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run;
+4. hold B1 bit for bit on the first frame of the full-width RGB-D
+   sequence at the SLAM threshold; drive ``KeyframeSLAM`` over the first
+   64 frames of that sequence (480 x 640 ``ring_out``, 1200 points,
+   textured, depth; ``max_kps`` 512, ``local_map_size`` 2048,
+   ``ba_points`` 1024, ``ba_window`` 8, ``ba_iters`` 6, ``kf_max_gap``
+   8, ``cap_frames`` 64), launch counters around it: B1, B2, B4, B5 and
+   B6 all launched, >= 90% of frames tracked, >= 3 keyframes and local
+   BA ran, and the ATE within ``max(0.05, 2 ref + 0.01)`` of the JAX
+   package's run;
 5. time two more, warm SLAM runs with the kernels (their ATE must equal
    the first run's bit for bit) and one with the plain versions
    (ms/frame, frames/s, split by timer section), the device busy share
    under torch.profiler, and every kernel's device time (CUDA events
    around replays of a CUDA graph of many calls) beside its plain
-   version and its bound, B5 and B3 at their extra shapes too;
+   version, its bound and the launch floor, B5, B3, B4 and B1 (the
+   SLAM frame) at their extra shapes too; B1's bound counts the arc
+   sums only at the starts that qualify on its input;
 6. hold B7 (BoW tree descent) against its plain version, word for
    word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
    and at k = 8, L = 4 (4681 nodes; N = 512, and an odd N with invalid
@@ -140,8 +147,10 @@ VOC_BIG = dict(k=8, L=4)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12          # outside the tensor cores
 N_SMS = 132
-# integer rates of this card, set by phase_probe (measured: see there)
+# integer rates of this card and the launch floor (ms), set by
+# phase_probe (measured: see there)
 INT_RATES = {}
+LAUNCH_FLOOR_MS = [float("nan")]
 
 # extra shapes the redesigned kernels are held to: B5 at the widest
 # camera count of its contract (a global BA of 32 keyframes) and at the
@@ -150,6 +159,10 @@ SCHUR_EXTRA = {"C32_P1024_O8": dict(C=32, P=1024, O=8, window=6, pads=True),
                "C4_P384_O8": dict(C=4, P=384, O=8, window=4, pads=False)}
 SCHUR_SCRATCH_MAX_MB = 12.0
 MATCHER_EXTRA = dict(N=333, M=1000)
+# B4 at the loop run's shape (local_map_size 768, max_kps 384) and with
+# more keypoints than its staging tile
+GATED_EXTRA = {"gated_matcher_N768_M384": (768, 384),
+               "gated_matcher_N2048_M2500": (2048, 2500)}
 
 KERNELS = {
     "fast_nms": dict(source="gslam_tpu_torch/csrc/fastnms.cu",
@@ -271,6 +284,20 @@ def kernel_name(mangled: str) -> str:
     return names[-1] if names else mangled
 
 
+def resource_lines(name, text):
+    """The register, shared-memory and spill lines of one source's
+    ``-Xptxas -v`` output, each with its kernel's name."""
+    entry, out = "?", []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = kernel_name(m.group(1))
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            out.append(f"  {name}.cu {entry}: "
+                       f"{line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def phase_build():
     log("card:", card_name_and_power_limit())
     log("torch", torch.__version__, "cuda", torch.version.cuda,
@@ -280,15 +307,8 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s for "
         f"{len(build.SOURCES)} sources")
     for name, text in logs.items():
-        entry = "?"
-        for line in text.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = kernel_name(m.group(1))
-            if "registers" in line or "spill" in line \
-                    or "error" in line.lower():
-                log(f"  {name}.cu {entry}: "
-                    f"{line.split(':', 1)[-1].strip()}")
+        for line in resource_lines(name, text):
+            log(line)
     for C in (8, schur.MAX_CAMS):    # B5's scratch: the blocks' partials
         n = schur._lib().gslam_schur_scratch(C, 1024)
         log(f"  schur.cu scratch at C={C}, P=1024: {n} floats "
@@ -365,6 +385,7 @@ def phase_probe():
         hamming_steps_per_clk_sm=rates["hamming_steps"],
         int_ops_per_clk_sm=2.0 * rates["int_steps"],    # xor and add
         max_sm_mhz=top)
+    LAUNCH_FLOOR_MS[0] = min(floor)
     log(f"launch_floor_ms {floor[0]:.6f}/{floor[1]:.6f} (an empty kernel, "
         "graph replay)")
     return dict(launch_floor_ms=min(floor), **INT_RATES,
@@ -419,6 +440,35 @@ def matcher_case(N, M, kind="ties", seed=0):
     else:
         raise ValueError(kind)
     return a.view(np.int32), va, b.view(np.int32), vb
+
+
+def fast_case(kind, H, W, seed=0):
+    """A numpy float32 (H, W) image for B1 and the threshold it is meant
+    for.  ``ring``: two corners whose 16 circle pixels all qualify, a
+    dark centre ringed by brighter pixels and a bright centre ringed by
+    darker ones, with random circle values, so every start's arc sum
+    differs from the next in its last bits.  ``boundary``: values on a
+    1/64 grid with the threshold 4/64, so that many circle differences
+    equal +t or -t exactly.  ``noise``: uniform noise (corners anywhere,
+    the border rows included).  ``flat``: no corner at all."""
+    rng = np.random.default_rng(seed)
+    if kind == "ring":
+        img = np.full((H, W), 0.1, np.float32)
+        ring = rng.uniform(0.5, 1.0, 16).astype(np.float32)
+        centres = ((H // 3, W // 3, 0.0), (2 * H // 3, 2 * W // 3, -0.7))
+        for cy, cx, shift in centres:
+            if shift:
+                img[cy, cx] = 0.9
+            for (dx, dy), v in zip(frontend.FAST_OFFSETS, ring):
+                img[cy + dy, cx + dx] = v + np.float32(shift)
+        return img, 0.06
+    if kind == "boundary":
+        return (rng.integers(0, 32, (H, W)) / 64).astype(np.float32), 0.0625
+    if kind == "noise":
+        return rng.uniform(0, 1, (H, W)).astype(np.float32), 0.06
+    if kind == "flat":
+        return np.full((H, W), 0.25, np.float32), 0.06
+    raise ValueError(kind)
 
 
 def ba_case(C, P, O, seed=0, window=None, pads=False):
@@ -518,17 +568,8 @@ def phase_check(inputs):
     rec = {}
 
     # B1: FAST + NMS on the example frame
-    nms_k, raw_k = fastnms.fast_nms_raw(img, THRESH)
+    rec["fast_nms"] = check_fast_nms(img, THRESH, "example frame")
     nms_p, raw_p = fastnms.fast_nms_plain(img, THRESH)
-    torch.cuda.synchronize()
-    err = max((raw_k - raw_p).abs().max().item(),
-              (nms_k - nms_p).abs().max().item())
-    same_support = torch.equal(nms_k > 0, nms_p > 0)
-    log(f"B1 fast_nms: max_abs_err {err:.3g}, nms support equal "
-        f"{same_support}, corners {(nms_k > 0).sum().item()}")
-    if not (err <= 1e-5 and same_support):
-        raise AssertionError("FAST+NMS kernel disagrees with plain version")
-    rec["fast_nms"] = dict(max_abs_err=err)
 
     # B2: BRIEF on that frame's K keypoints (plain detector path)
     uv, _, kvalid, _ = frontend.select_keypoints(nms_p, max_kps=K,
@@ -567,7 +608,6 @@ def phase_check(inputs):
         desc, valid, fdesc, kvalid), "B3 matcher")
     rec["matcher"] = dict(max_abs_err=err,
                           args=(desc, valid, fdesc, kvalid))
-    rec["fast_nms"]["args"] = (img,)
 
     # B3 off the tile grid: ties across tile borders, a lone valid tile,
     # a lone valid column
@@ -590,6 +630,35 @@ def phase_check(inputs):
         if kind == "ties":
             rec["matcher_extra"] = dict(max_abs_err=err, args=tuple(args))
     return rec
+
+
+def check_fast_nms(img, threshold, what):
+    """B1 against its plain version, bit for bit on both maps, and two
+    calls the same bits; the record for timing."""
+    nms_k, raw_k = fastnms.fast_nms_raw(img, threshold)
+    nms_p, raw_p = fastnms.fast_nms_plain(img, threshold)
+    torch.cuda.synchronize()
+    err = max((raw_k - raw_p).abs().max().item(),
+              (nms_k - nms_p).abs().max().item())
+    same = torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
+    same_support = torch.equal(nms_k > 0, nms_p > 0)
+    log(f"B1 fast_nms ({what}, threshold {threshold}): max_abs_err "
+        f"{err:.3g}, bit for bit {same}, nms support equal {same_support}, "
+        f"corners {(nms_k > 0).sum().item()}")
+    if not (err == 0.0 and same and same_support):
+        raise AssertionError(f"FAST+NMS kernel disagrees with plain version "
+                             f"({what})")
+    assert_same_bits(lambda: fastnms.fast_nms_raw(img, threshold),
+                     f"B1 fast_nms ({what})")
+    return dict(max_abs_err=err, args=(img, threshold))
+
+
+def phase_check_fast_frame(frame):
+    """B1 on the first frame of the 64-frame SLAM sequence, at the SLAM
+    path's threshold."""
+    img = torch.as_tensor(frame.image, device=DEVICE)
+    return {"fast_nms_slam_frame": check_fast_nms(
+        img, SLAM_CFG["fast_threshold"], "first SLAM frame")}
 
 
 def phase_main_path(inputs):
@@ -743,27 +812,22 @@ def phase_profile(inputs, frames: int = 10):
 def phase_kernel_times(rec, launched):
     """B1, B2 and B3 kernel and plain times at the tracking step's
     shapes, with bounds."""
-    img, = rec["fast_nms"]["args"]
+    img, thresh = rec["fast_nms"]["args"]
     blur, uv, ca, sa = rec["brief"]["args"]
     desc, valid, fdesc, kvalid = rec["matcher"]["args"]
-    n_px = img.numel()
-    arc = 9
-    # per pixel: 16 circle differences; per arc start 2 compares, 2
-    # subtractions, 2 sums per arc pixel and 2 maxima; NMS 9 maxima
-    fast_ops = n_px * (16 + 16 * (6 * arc + 2) + 1 + 10)
     Kn = uv.shape[0]
     # per bit: 8 products, 6 sums, 4 roundings, 8 clamps, 2 addresses
     # (2 ops each), 1 compare
     brief_ops = Kn * 256 * 31
     brief_bytes = 4 * (blur.numel() + Kn * 4 + 256 * 4) + Kn * 32
     work = {
-        "fast_nms": (3 * 4 * n_px, fast_ops),
+        "fast_nms": fast_work(img, thresh),
         "brief": (brief_bytes, brief_ops),
         "matcher": matcher_work(desc.shape[0], fdesc.shape[0]),
     }
     calls = {
-        "fast_nms": (lambda: fastnms.fast_nms_raw(img, THRESH),
-                     lambda: fastnms.fast_nms_plain(img, THRESH)),
+        "fast_nms": (lambda: fastnms.fast_nms_raw(img, thresh),
+                     lambda: fastnms.fast_nms_plain(img, thresh)),
         "brief": (lambda: brief.brief(blur, uv, ca, sa),
                   lambda: frontend.brief_from_rotation(blur, uv, ca, sa)),
         "matcher": (lambda: matcher.hamming_top2_kernel(desc, valid, fdesc,
@@ -771,6 +835,28 @@ def phase_kernel_times(rec, launched):
                     lambda: hamming_top2(desc, valid, fdesc, kvalid)),
     }
     return time_kernels(calls, work, rec, launched)
+
+
+def fast_work(img, threshold, arc=9):
+    """(bytes, float operations) that one B1 call on ``img`` needs: the
+    image read once and both maps written once; per pixel 16 circle
+    differences, 32 compares, 22 mask operations (the arc starts of both
+    masks) and the 3 x 3 NMS (9 maxima, 1 compare); and for each arc
+    start that qualifies on this image (counted with the plain version's
+    masks, inside the border) ``arc`` subtractions, ``arc`` sums and one
+    maximum."""
+    H, W = img.shape
+    d = torch.stack([torch.roll(img, (-int(dy), -int(dx)), (0, 1))
+                     for dx, dy in frontend.FAST_OFFSETS]) - img
+    starts = 0
+    for m in (d > threshold, d < -threshold):
+        ext = torch.cat([m, m[:arc]])
+        for s in range(16):
+            starts += int(ext[s:s + arc].all(0)[3:H - 3, 3:W - 3].sum())
+    n_px = H * W
+    log(f"B1 work at {H}x{W}, threshold {threshold}: {starts} qualifying "
+        f"arc starts ({starts / n_px:.5f} a pixel)")
+    return 3 * 4 * n_px, n_px * (16 + 32 + 22 + 10) + starts * (2 * arc + 1)
 
 
 def matcher_work(N, M):
@@ -781,24 +867,30 @@ def matcher_work(N, M):
             N * M * 4)
 
 
-def gated_inputs():
-    """B4's main-path shape: N = 2048 map rows against M = 512
-    keypoints, each keypoint within a few pixels of a map row's
-    projection with a near copy of its descriptor (the tracking
-    matcher's situation), the rest random; about 10% of rows masked."""
-    rng = np.random.default_rng(7)
-    N, Mk = 2048, 512
+def gated_inputs(N=2048, Mk=512, seed=7):
+    """B4's inputs, by default at its main-path shape (N = 2048 map rows
+    against M = 512 keypoints): each keypoint within a few pixels of a
+    map row's projection with a near copy of its descriptor (the
+    tracking matcher's situation), the rest random; about 10% of rows
+    masked.  Keypoints beyond N are random."""
+    rng = np.random.default_rng(seed)
+    near = min(N, Mk)
     uv_map = np.stack([rng.uniform(0, W, N), rng.uniform(0, H, N)],
                       -1).astype(np.float32)
     desc_map = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(
         np.uint32)
-    perm = rng.permutation(N)[:Mk]
-    kp_uv = (uv_map[perm] + rng.normal(0, 3.0, (Mk, 2))).astype(np.float32)
+    perm = rng.permutation(N)[:near]
+    kp_uv = (uv_map[perm] + rng.normal(0, 3.0, (near, 2))).astype(np.float32)
     kp_desc = desc_map[perm].copy()
-    kp_desc[:, 0] ^= np.uint32(1) << rng.integers(0, 32, Mk).astype(
+    kp_desc[:, 0] ^= np.uint32(1) << rng.integers(0, 32, near).astype(
         np.uint32)
     valid_map = rng.random(N) < 0.9
     valid_kp = rng.random(Mk) < 0.95
+    if Mk > near:
+        kp_uv = np.concatenate([kp_uv, np.stack(
+            [rng.uniform(0, W, Mk - near), rng.uniform(0, H, Mk - near)],
+            -1).astype(np.float32)])
+        kp_desc = np.concatenate([kp_desc, random_words(rng, Mk - near)])
     return [torch.as_tensor(x, device=DEVICE) for x in (
         desc_map.view(np.int32), valid_map, kp_desc.view(np.int32),
         valid_kp, uv_map, kp_uv)]
@@ -830,19 +922,24 @@ def phase_check_slam_kernels():
     """B4, B5 and B6 against their plain versions at the SLAM path's
     shapes; bundle_adjust with the kernels against the plain LM."""
     rec = {}
-    g_args = gated_inputs()
     gate2 = gate_squared(SLAMConfig().gate_radius_px)
-    out_k = matcher.gated_top2_kernel(*g_args, gate2)
-    out_p = hamming_top2_gated(*g_args, gate2)
-    torch.cuda.synchronize()
-    err = max((a.float() - b.float()).abs().max().item()
-              for a, b in zip(out_k, out_p))
-    n_m = int((out_p[0] <= 64).sum())
-    log(f"B4 gated matcher: max_abs_err {err:.3g} over best/second/idx, "
-        f"{n_m} rows with a candidate within 64 bits")
-    if err != 0.0:
-        raise AssertionError("gated matcher kernel disagrees with plain")
-    rec["gated_matcher"] = dict(max_abs_err=err, args=(*g_args, gate2))
+    for label, (N, Mk) in {"gated_matcher": (2048, 512),
+                           **GATED_EXTRA}.items():
+        g_args = gated_inputs(N, Mk)
+        out_k = matcher.gated_top2_kernel(*g_args, gate2)
+        out_p = hamming_top2_gated(*g_args, gate2)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(out_k, out_p))
+        n_m = int((out_p[0] <= 64).sum())
+        log(f"B4 gated matcher N={N} M={Mk}: max_abs_err {err:.3g} over "
+            f"best/second/idx, {n_m} rows with a candidate within 64 bits")
+        if err != 0.0:
+            raise AssertionError(f"gated matcher kernel disagrees with "
+                                 f"plain (N={N}, M={Mk})")
+        assert_same_bits(lambda: matcher.gated_top2_kernel(*g_args, gate2),
+                         f"B4 gated matcher (N={N}, M={Mk})")
+        rec[label] = dict(max_abs_err=err, args=(*g_args, gate2))
 
     prob = bench_problem()
     lam = torch.tensor(1e-3, device=DEVICE)
@@ -1029,33 +1126,33 @@ def schur_work(prob):
     return n_bytes, n_obs * 395 + P * 40 + pairs * 216
 
 
+def gated_matcher_work(a_map, v_map, a_kp, v_kp, uv_map, uv_kp, gate2):
+    """(bytes, float operations, Hamming steps, other integer
+    operations) of one B4 call: per pair the gate (2 subtractions, 2
+    products, 1 sum, 1 compare: float operations); per pair inside the
+    gate 8 Hamming steps (xor, popc, add) and 3 top-2 compares."""
+    N, Mk = a_map.shape[0], a_kp.shape[0]
+    d2 = ((uv_map[:, None] - uv_kp[None]) ** 2).sum(-1)
+    n_gated = int((v_map[:, None] & v_kp[None] & (d2 <= gate2)).sum())
+    return ((N + Mk) * (32 + 8 + 1) + N * 12, N * Mk * 6, n_gated * 8,
+            n_gated * 3)
+
+
 def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     """B4, B5 and B6 device times beside their plain versions, at the
     SLAM path's shapes, with bounds from this run's inputs."""
-    a_map, v_map, a_kp, v_kp, uv_map, uv_kp, gate2 = \
-        rec["gated_matcher"]["args"]
+    g = rec["gated_matcher"]["args"]
     prob, lam = rec["schur"]["args"]
-    N, Mk = a_map.shape[0], a_kp.shape[0]
     C = prob.cam_pose.shape[0]
     P, O = prob.obs_cam.shape
     n_obs = int(prob.obs_valid.sum())
-    # B4: per pair the gate (2 subtractions, 2 products, 1 sum, 1
-    # compare: float operations); per pair inside the gate 8 Hamming
-    # steps (xor, popc, add) and 3 top-2 compares
-    d2 = ((uv_map[:, None] - uv_kp[None]) ** 2).sum(-1)
-    n_gated = int((v_map[:, None] & v_kp[None] & (d2 <= gate2)).sum())
-    gated_work = ((N + Mk) * (32 + 8 + 1) + N * 12, N * Mk * 6,
-                  n_gated * 8, n_gated * 3)
     # B6 per observation: residual, norm and Huber weight, w e^2 (40)
     cost_work = (C * 64 + P * 12 + P * O * 16 + 4, n_obs * 40)
-    work = {"gated_matcher": gated_work, "schur": schur_work(prob),
-            "ba_cost": cost_work}
+    work = {"gated_matcher": gated_matcher_work(*g),
+            "schur": schur_work(prob), "ba_cost": cost_work}
     calls = {
-        "gated_matcher": (
-            lambda: matcher.gated_top2_kernel(a_map, v_map, a_kp, v_kp,
-                                              uv_map, uv_kp, gate2),
-            lambda: hamming_top2_gated(a_map, v_map, a_kp, v_kp, uv_map,
-                                       uv_kp, gate2)),
+        "gated_matcher": (lambda: matcher.gated_top2_kernel(*g),
+                          lambda: hamming_top2_gated(*g)),
         "schur": (lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
                   lambda: ba.schur_reduce(prob, lam, 0.01)),
         "ba_cost": (lambda: schur.ba_cost_kernel(prob, 0.01),
@@ -1307,11 +1404,12 @@ def time_kernels(calls, work, rec, launched, per=None):
                         launches=launched[name],
                         max_abs_err=rec[name]["max_abs_err"], **t,
                         library_ms=None))
-        log(f"{name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
-            f"{p2:.4f} ms (device, graph replay); eager call "
-            f"{eager:.4f} ms; bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']}; work {work[name]}); launches "
-            f"{launched[name]}" + (f" ({per[name]})" if per else ""))
+        log(f"{name}: kernel {k1:.6f}/{k2:.6f} ms, plain {p1:.6f}/"
+            f"{p2:.6f} ms (device, graph replay); eager call "
+            f"{eager:.4f} ms; bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}; work {work[name]}); launch floor "
+            f"{LAUNCH_FLOOR_MS[0]:.6f} ms; launches {launched[name]}"
+            + (f" ({per[name]})" if per else ""))
     return out
 
 
@@ -1330,12 +1428,25 @@ def phase_extra_kernel_times(rec):
     pairs["matcher_N{N}_M{M}".format(**MATCHER_EXTRA)] = (
         entry, lambda: matcher.hamming_top2_kernel(*entry["args"]),
         lambda: hamming_top2(*entry["args"]), matcher_work(**MATCHER_EXTRA))
+    for label in GATED_EXTRA:
+        entry = rec[label]
+        pairs[label] = (
+            entry, lambda a=entry["args"]: matcher.gated_top2_kernel(*a),
+            lambda a=entry["args"]: hamming_top2_gated(*a),
+            gated_matcher_work(*entry["args"]))
+    entry = rec["fast_nms_slam_frame"]
+    pairs["fast_nms_slam_frame"] = (
+        entry, lambda: fastnms.fast_nms_raw(*entry["args"]),
+        lambda: fastnms.fast_nms_plain(*entry["args"]),
+        fast_work(*entry["args"]))
     out = {}
     for label, (entry, kfn, pfn, work) in pairs.items():
         out[label], ks = time_pair(kfn, pfn, work)
         out[label]["max_abs_err"] = entry["max_abs_err"]
-        log(f"{label}: kernel {ks[0]:.4f}/{ks[1]:.4f} ms, plain {ks[2]:.4f}/"
-            f"{ks[3]:.4f} ms; bound {out[label]['bound_ms']:.5f} ms")
+        log(f"{label}: kernel {ks[0]:.6f}/{ks[1]:.6f} ms, plain "
+            f"{ks[2]:.6f}/{ks[3]:.6f} ms; bound "
+            f"{out[label]['bound_ms']:.6f} ms ({out[label]['bound_by']}); "
+            f"launch floor {LAUNCH_FLOOR_MS[0]:.6f} ms")
     return out
 
 
@@ -1377,6 +1488,7 @@ def main() -> int:
     rec.update(phase_check_slam_kernels())
     t = phase("check B4-B6", t)
     camera, frames = load_frames()
+    rec.update(phase_check_fast_frame(frames[0]))
     launched_slam, slam_checks = phase_slam(camera, frames)
     t = phase("KeyframeSLAM main path", t)
     slam_times = phase_slam_timing(camera, frames, slam_checks["ate_m"])

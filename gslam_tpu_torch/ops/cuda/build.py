@@ -37,17 +37,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, flags: Tuple[str, ...] = None) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS if flags is None else flags
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{h[:16]}.so"
 
 
-def build_all(names=SOURCES) -> Dict[str, str]:
+def build_all(names=SOURCES, flags: Tuple[str, ...] = None
+              ) -> Dict[str, str]:
     """Compile every missing library, one ``nvcc`` per source, all
-    started together.  Returns each source's compiler output (register
-    and shared-memory use, from ``-Xptxas -v``); raises with the
-    compiler's messages if any build fails."""
+    started together, with ``flags`` (``NVCC_FLAGS`` by default; a
+    tuning run adds ``-D`` macros).  Returns each source's compiler
+    output (register and shared-memory use, from ``-Xptxas -v``); raises
+    with the compiler's messages if any build fails."""
+    flags = NVCC_FLAGS if flags is None else flags
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
@@ -57,13 +61,13 @@ def build_all(names=SOURCES) -> Dict[str, str]:
     logs: Dict[str, str] = {}
     try:
         for name in names:
-            out = _lib_path(name)
+            out = _lib_path(name, flags)
             if out.exists():
                 logs[name] = "cached"
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *flags, "-o", tmp, str(CSRC / f"{name}.cu")]
             procs.append((name, Path(tmp), out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -8,9 +8,14 @@ same card, power limit and host within one call.  Each worker imports
 its own tree's ``chip_smoke`` and ``gslam_tpu_torch``, builds that
 tree's kernels and prints one JSON line:
 
-- device ms of the B3 matcher on ``track_forward``'s inputs and of the
-  B5 Schur reduction on the local-BA problem (C = 8, P = 1024, O = 8),
-  by CUDA-graph replay (``chip_smoke.graph_ms``);
+- device ms, by CUDA-graph replay (``chip_smoke.graph_ms``), of B1
+  FAST+NMS on ``track_forward``'s example image (480 x 640, threshold
+  0.06) and on the first frame of the 64-frame SLAM sequence (threshold
+  0.08), of the B3 matcher on ``track_forward``'s inputs, of the B4 gated
+  matcher at N = 2048, M = 512 (``chip_smoke.gated_inputs``) and at
+  N = 768, M = 384 (the first rows and keypoints of those inputs), and
+  of the B5 Schur reduction on the local-BA problem (C = 8, P = 1024,
+  O = 8);
 - device ms of ``track_forward``'s stages (``chip_smoke.phase_stages``;
   ``match`` is the matcher call with its PyTorch decisions);
 - a warm 64-frame ``KeyframeSLAM`` run: ms/frame, the timer sections in
@@ -36,7 +41,8 @@ def worker() -> int:
     import chip_smoke as cs
     from gslam_tpu_torch.models.graft import example_inputs
     from gslam_tpu_torch.ops import frontend
-    from gslam_tpu_torch.ops.cuda import build, matcher, schur
+    from gslam_tpu_torch.ops.cuda import build, fastnms, matcher, schur
+    from gslam_tpu_torch.ops.matching import gate_squared
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -46,14 +52,27 @@ def worker() -> int:
     f = frontend.extract_features(img, max_kps=cs.K)
     prob = cs.bench_problem()
     lam = torch.tensor(1e-3, device="cuda")
+    camera, frames = cs.load_frames()
+    frame = torch.as_tensor(frames[0].image, device="cuda")
+    g = cs.gated_inputs()
+    g_loop = [x[:768] for x in g[:2]] + [x[:384] for x in g[2:4]] \
+        + [g[4][:768], g[5][:384]]
+    gate2 = gate_squared(cs.SLAMConfig().gate_radius_px)
     out = {
+        "fast_nms_ms": cs.graph_ms(lambda: fastnms.fast_nms_raw(
+            img, cs.THRESH)),
+        "fast_nms_slam_frame_ms": cs.graph_ms(lambda: fastnms.fast_nms_raw(
+            frame, cs.SLAM_CFG["fast_threshold"])),
+        "gated_ms": cs.graph_ms(lambda: matcher.gated_top2_kernel(
+            *g, gate2)),
+        "gated_N768_M384_ms": cs.graph_ms(lambda: matcher.gated_top2_kernel(
+            *g_loop, gate2)),
         "matcher_ms": cs.graph_ms(lambda: matcher.hamming_top2_kernel(
             desc, valid, f.desc, f.valid)),
         "schur_ms": cs.graph_ms(lambda: schur.schur_reduce_kernel(
             prob, lam, 0.01)),
         "stages_ms": cs.phase_stages(inputs),
     }
-    camera, frames = cs.load_frames()
     cs.run_slam(camera, frames)                      # warm-up
     slam, secs = cs.run_slam(camera, frames)
     n = len(frames)
@@ -97,7 +116,11 @@ def main() -> int:
         res = json.loads(lines[-1][len("RESULT "):])
         runs.append({"tree": label, **res})
         sp = res["slam_split_ms_per_frame"]
-        print(f"{label}: matcher {res['matcher_ms']:.6f} ms, schur "
+        print(f"{label}: fast_nms {res['fast_nms_ms']:.6f} ms (SLAM frame "
+              f"{res['fast_nms_slam_frame_ms']:.6f}), gated "
+              f"{res['gated_ms']:.6f} ms (N=768, M=384 "
+              f"{res['gated_N768_M384_ms']:.6f}), matcher "
+              f"{res['matcher_ms']:.6f} ms, schur "
               f"{res['schur_ms']:.6f} ms, match stage "
               f"{res['stages_ms']['match']:.4f} ms, SLAM "
               f"{res['slam_ms_per_frame']:.3f} ms/frame, local_ba "

@@ -5,10 +5,10 @@ without one; run them on a machine with a card by
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 (``--noconftest``: this file imports neither JAX nor the JAX package,
-so it runs where JAX is not installed).  Tolerances: FAST+NMS to 1e-5
-(float32 arc sums in the same order; in practice equal), BRIEF bit for
-bit and the matcher exactly (integer arithmetic), as the kernels'
-headers state.  The CPU half of the contract (a CPU tensor takes the
+so it runs where JAX is not installed).  Tolerances: FAST+NMS bit for
+bit (float32 arc sums of the qualifying starts in the same order), BRIEF
+bit for bit and the matchers exactly (integer arithmetic), as the
+kernels' headers state.  The CPU half of the contract (a CPU tensor takes the
 plain version) is in the frontend and matching test files.
 """
 
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from chip_smoke import (
-    assert_schur_close, ba_case, matcher_case, to_problem,
+    assert_schur_close, ba_case, fast_case, matcher_case, to_problem,
     without_pad_indices,
 )
 from gslam_tpu_torch.ops import frontend, matching
@@ -43,23 +43,54 @@ def blob_image(rng, H, W, n, r=3):
     return img
 
 
-@pytest.mark.parametrize("shape,arc,r", [
-    ((120, 160), 9, 3), ((97, 131), 9, 3), ((480, 640), 9, 3),
-    ((64, 70), 12, 1)])         # 2x2 squares: every circle pixel darker
-def test_fast_nms_kernel_matches_plain(dev, shape, arc, r):
+@pytest.mark.parametrize("kind,shape,arc,r", [
+    ("blob", (120, 160), 9, 3), ("blob", (97, 131), 9, 3),
+    ("blob", (480, 640), 9, 3), ("blob", (480, 640), 12, 3),
+    ("blob", (64, 70), 12, 1),  # 2x2 squares: every circle pixel darker
+    ("ring", (40, 44), 9, 0), ("ring", (40, 44), 12, 0),
+    ("boundary", (48, 72), 9, 0), ("boundary", (48, 72), 12, 0),
+    ("noise", (7, 9), 9, 0), ("noise", (20, 33), 9, 0),
+    ("noise", (20, 33), 12, 0), ("noise", (131, 97), 9, 0),
+    ("flat", (30, 36), 9, 0)])
+def test_fast_nms_kernel_matches_plain(dev, kind, shape, arc, r):
+    """Both maps bit for bit: blob images (W a multiple of 4 or not),
+    two centres whose 16 circle pixels all qualify, differences equal to
+    +t and -t, shapes smaller than one tile and no corner at all."""
     rng = np.random.default_rng(1)
-    img = blob_image(rng, *shape, n=shape[0] * shape[1] // 600, r=r)
-    img += rng.uniform(0, 0.02, img.shape).astype(np.float32)
-    t = torch.as_tensor(img, device=dev)
+    if kind == "blob":
+        img = blob_image(rng, *shape, n=shape[0] * shape[1] // 600, r=r)
+        img += rng.uniform(0, 0.02, img.shape).astype(np.float32)
+        t = 0.06
+    else:
+        img, t = fast_case(kind, *shape, seed=1)
+    x = torch.as_tensor(img, device=dev)
     before = fastnms.launches
-    nms_k, raw_k = fastnms.fast_nms_raw(t, 0.06, arc)
-    nms_p, raw_p = fastnms.fast_nms_plain(t, 0.06, arc)
+    nms_k, raw_k = fastnms.fast_nms_raw(x, t, arc)
+    nms_p, raw_p = fastnms.fast_nms_plain(x, t, arc)
+    again = fastnms.fast_nms_raw(x, t, arc)
     torch.cuda.synchronize()
-    assert fastnms.launches == before + 1
-    torch.testing.assert_close(raw_k, raw_p, atol=1e-5, rtol=0)
-    torch.testing.assert_close(nms_k, nms_p, atol=1e-5, rtol=0)
-    assert torch.equal(nms_k > 0, nms_p > 0)
-    assert (nms_k > 0).sum() > 0
+    assert fastnms.launches == before + 2
+    assert torch.equal(raw_k, raw_p)
+    assert torch.equal(nms_k, nms_p)
+    assert torch.equal(again[0], nms_k) and torch.equal(again[1], raw_k)
+    if kind in ("blob", "ring"):
+        assert (nms_k > 0).sum() > 0
+    if kind == "flat":
+        assert not raw_k.any()
+
+
+def test_fast_nms_kernel_unaligned_image(dev):
+    """An image that starts 4 bytes into its storage takes the 4-byte
+    loads and stores, with the same bits."""
+    rng = np.random.default_rng(2)
+    img = blob_image(rng, 96, 128, n=20)
+    flat = torch.zeros(96 * 128 + 1, device=dev)
+    x = flat[1:].view(96, 128)
+    x.copy_(torch.as_tensor(img, device=dev))
+    nms_k, raw_k = fastnms.fast_nms_raw(x, 0.06)
+    nms_p, raw_p = fastnms.fast_nms_plain(x, 0.06)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
 
 
 @pytest.mark.parametrize("K", [1, 100, 512])
@@ -178,39 +209,74 @@ def test_wrappers_reject_bad_inputs(dev):
 # B4 gated matcher, B5 Schur reduction, B6 BA cost
 
 
-def gated_case(rng, N, M, gate):
+def gated_case(rng, N, M, gate, kind="near"):
+    """``near``: half the keypoints near copies of map rows within the
+    gate, two tied keypoints, one keypoint exactly on the gate of row 2.
+    ``masked``: the same with every map row masked.  ``ties``: keypoints
+    duplicated (descriptor and pixel) 1, 64, 128, 512 and 1024 columns
+    apart, each matched by rows in different warps and blocks of the
+    kernel, so equal minima meet across its row groups and column
+    tiles."""
     a = random_desc(rng, N)
     b = random_desc(rng, M)
-    k = min(N, M) // 2
-    b[:k] = a[:k]
-    b[:k, 0] ^= 7
-    b[k + 1] = b[k]                      # tied keypoints
     va = rng.uniform(size=N) > 0.1
     vb = rng.uniform(size=M) > 0.1
     uv_a = rng.uniform(0, 200, (N, 2)).astype(np.float32)
     uv_b = rng.uniform(0, 200, (M, 2)).astype(np.float32)
+    k = min(N, M) // 2
+    b[:k] = a[:k]
+    b[:k, 0] ^= 7
     uv_b[:k] = uv_a[:k] + rng.uniform(-0.6, 0.6, (k, 2)).astype(
         np.float32) * gate
-    uv_b[k] = uv_b[k + 1] = uv_a[0]
-    if N > 2:
+    if k + 1 < M:
+        b[k + 1] = b[k]                  # tied keypoints
+        uv_b[k] = uv_b[k + 1] = uv_a[0]
+    if N > 2 and M > 2:
         uv_b[2] = uv_a[2] + np.asarray([gate, 0], np.float32)   # on the gate
+    if kind == "masked":
+        va[:] = False
+    elif kind == "ties":
+        rows = iter(range(N - 1, 0, -7))
+        for c, gap in ((3, 1), (5, 64), (10, 128), (20, 512), (40, 1024)):
+            if c + gap < M:
+                b[c + gap], uv_b[c + gap] = b[c], uv_b[c]
+                vb[c] = vb[c + gap] = True
+                for _ in range(3):
+                    r = next(rows)
+                    a[r], uv_a[r], va[r] = b[c], uv_b[c], True
+                    a[r, 5] ^= np.int32(1 << r % 3)
     return a, va, b, vb, uv_a, uv_b
 
 
-@pytest.mark.parametrize("N,M,gate", [(2048, 512, 40.0), (100, 700, 25.0),
-                                      (33, 6, 40.0), (1, 3, 10.0)])
-def test_gated_kernel_matches_plain(dev, N, M, gate):
+@pytest.mark.parametrize("N,M,gate,kind", [
+    (2048, 512, 40.0, "near"), (100, 700, 25.0, "near"),
+    (33, 6, 40.0, "near"), (1, 3, 10.0, "near"),
+    (768, 384, 40.0, "near"), (1001, 2500, 40.0, "near"),
+    (17, 1, 300.0, "near"), (2048, 512, 40.0, "masked"),
+    (70, 300, 40.0, "masked"), (2048, 1200, 300.0, "ties"),
+    (333, 2500, 300.0, "ties")])
+def test_gated_kernel_matches_plain(dev, N, M, gate, kind):
+    """Value for value against the plain version, and the same bits from
+    run to run: the main path's and the loop run's shapes, M above the
+    staging tile, N off the rows a block takes, one keypoint, every row
+    masked, ties across row groups and column tiles."""
     rng = np.random.default_rng(5)
     args = [torch.as_tensor(x, device=dev)
-            for x in gated_case(rng, N, M, gate)]
+            for x in gated_case(rng, N, M, gate, kind)]
     g2 = matching.gate_squared(gate)
     before = matcher.gated_launches
     out_k = matcher.gated_top2_kernel(*args, g2)
     out_p = matching.hamming_top2_gated(*args, g2)
+    again = matcher.gated_top2_kernel(*args, g2)
     torch.cuda.synchronize()
-    assert matcher.gated_launches == before + 1
-    for k, p in zip(out_k, out_p):
+    assert matcher.gated_launches == before + 2
+    for k, p, k2 in zip(out_k, out_p, again):
         assert torch.equal(k, p.to(k.dtype))
+        assert torch.equal(k, k2)
+    if kind == "masked":
+        assert (out_k[0] == 257).all() and (out_k[2] == 0).all()
+    if kind == "ties":
+        assert int((out_p[0] == out_p[1]).sum()) >= 5
     m_k = matcher.match_hamming_gated(*args, gate, ratio=0.85)
     m_p = matching.match_descriptors_gated(*args, gate, ratio=0.85)
     assert torch.equal(m_k.idx, m_p.idx) and torch.equal(m_k.valid,
