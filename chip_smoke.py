@@ -15,7 +15,8 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    B3, B4 and B7 are stated against;
 2. the tracking step ``track_forward`` (480 x 640 image, K = 512
    keypoints, a 2048-entry map slab): hold B1 FAST+NMS (bit for bit on
-   both maps, twice for the same bits), B2 BRIEF and B3 matcher against
+   both maps, twice for the same bits), B2 BRIEF (bit for bit, also at
+   the loop run's K = 384) and B3 matcher against
    their plain versions (B3 also at N = 333, M = 1000 with equal minima
    on both sides of its tile borders, with the valid columns in one
    tile only and in one column only, and two calls on the same inputs
@@ -27,11 +28,13 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    M = 384 and at M = 2500, more keypoints than it stages at once; each
    twice for the same bits), B5 (Schur reduction) and B6 (BA
    cost) against their plain versions on the local-BA problem of
-   ``bench.py`` (C = 8, P = 1024, O = 8); B5 also at C = 32, P = 1024,
-   O = 8 (the widest camera count of its contract; six cameras per
+   ``bench.py`` (C = 8, P = 1024, O = 8); both also at C = 32, P = 1024,
+   O = 8 (the widest camera count of their contract; six cameras per
    point, repeated cameras, pad slots) and at the loop run's C = 4,
-   P = 384, each twice for the same bits; and ``bundle_adjust`` with
-   the kernels against the plain LM for 6 iterations;
+   P = 384, each twice for the same bits; B6 also bit for bit against
+   the float32 model of its summation order (``cost_order``); and
+   ``bundle_adjust`` with the kernels against the plain LM for 6
+   iterations;
 4. hold B1 bit for bit on the first frame of the full-width RGB-D
    sequence at the SLAM threshold; drive ``KeyframeSLAM`` over the first
    64 frames of that sequence (480 x 640 ``ring_out``, 1200 points,
@@ -46,8 +49,8 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    (ms/frame, frames/s, split by timer section), the device busy share
    under torch.profiler, and every kernel's device time (CUDA events
    around replays of a CUDA graph of many calls) beside its plain
-   version, its bound and the launch floor, B5, B3, B4 and B1 (the
-   SLAM frame) at their extra shapes too; B1's bound counts the arc
+   version, its bound and the launch floor, B5, B6, B3, B4, B1 (the
+   SLAM frame) and B2 at their extra shapes too; B1's bound counts the arc
    sums only at the starts that qualify on its input;
 6. hold B7 (BoW tree descent) against its plain version, word for
    word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
@@ -159,6 +162,8 @@ SCHUR_EXTRA = {"C32_P1024_O8": dict(C=32, P=1024, O=8, window=6, pads=True),
                "C4_P384_O8": dict(C=4, P=384, O=8, window=4, pads=False)}
 SCHUR_SCRATCH_MAX_MB = 12.0
 MATCHER_EXTRA = dict(N=333, M=1000)
+# B2 at the loop run's max_kps (and B6 at SCHUR_EXTRA's problems)
+BRIEF_LOOP_K = 384
 # B4 at the loop run's shape (local_map_size 768, max_kps 384) and with
 # more keypoints than its staging tile
 GATED_EXTRA = {"gated_matcher_N768_M384": (768, 384),
@@ -532,6 +537,63 @@ def to_problem(fields, device):
                               for x in fields))
 
 
+def tree_sum(rows):
+    """The fixed tree over the last axis of (n, 256) float32 ``rows``:
+    entry t takes entry t + h for h = 128, 64, ..., 1; entry 0."""
+    r = rows.copy()
+    h = r.shape[-1] // 2
+    while h:
+        r[:, :h] = r[:, :h] + r[:, h:2 * h]
+        h //= 2
+    return r[:, 0]
+
+
+def cost_order(fields, huber=0.01):
+    """B6's robust cost sum w e^2 of BundleProblem ``fields`` (numpy, as
+    ``ba_case`` gives them) in float32 numpy, every operation rounded as
+    ``residual_stage<true>`` of csrc/schur.cu rounds it (x / z, no fused
+    multiply-adds; a pad camera index taken from the end and clamped
+    into [0, C)), summed in the kernel's fixed order: (1) per point the
+    slot terms (w e) e in slot order from +0, a slot without weight
+    adding nothing; (2) 256 consecutive points per partial, padded with
+    zeros, in the tree of ``tree_sum``; (3) entry t of 256 folds
+    partials t, t + 256, ... from 0, then the same tree."""
+    f = np.float32
+    pose, _, xyz, _, cam, uv, valid, weight = fields
+    C = pose.shape[0]
+    c = np.clip(np.where(cam < 0, cam + C, cam), 0, C - 1)
+    t0, t1, t2, qw, qx, qy, qz = np.moveaxis(pose.astype(f)[c], -1, 0)
+    px, py, pz = (xyz[:, k:k + 1].astype(f) for k in range(3))
+    tx = f(2) * (qy * pz - qz * py)
+    ty = f(2) * (qz * px - qx * pz)
+    tz = f(2) * (qx * py - qy * px)
+    x = px + qw * tx + (qy * tz - qz * ty) + t0
+    y = py + qw * ty + (qz * tx - qx * tz) + t1
+    z = pz + qw * tz + (qx * ty - qy * tx) + t2
+    front = z > f(1e-6)
+    zs = np.where(front, z, f(1))
+    rx = x / zs - uv[..., 0]
+    ry = y / zs - uv[..., 1]
+    e = np.sqrt(rx * rx + ry * ry)
+    hd = f(huber)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        hub = np.where(e <= hd, f(1), hd / np.maximum(e, f(1e-12)))
+        wt = np.where(valid, weight, f(0)).astype(f)
+        w = np.where(front & (wt != 0), wt * hub, f(0))
+        terms = np.where(w != 0, (w * e) * e, f(0))
+    acc = np.zeros(xyz.shape[0], f)
+    for o in range(terms.shape[1]):                      # (1)
+        acc = acc + terms[:, o]
+    nb = -(-acc.size // 256)
+    partial = tree_sum(np.pad(acc, (0, nb * 256 - acc.size))
+                       .reshape(nb, 256))                # (2)
+    fold = np.zeros(256, f)
+    rows = np.pad(partial, (0, -(-nb // 256) * 256 - nb)).reshape(-1, 256)
+    for row in rows:                                     # (3)
+        fold = fold + row
+    return tree_sum(fold[None])[0]
+
+
 def assert_schur_close(out_k, out_p, what):
     """B5's outputs against the plain version's, within
     tests/test_pallas.py:180-191's tolerances; the max abs error of
@@ -569,24 +631,27 @@ def phase_check(inputs):
 
     # B1: FAST + NMS on the example frame
     rec["fast_nms"] = check_fast_nms(img, THRESH, "example frame")
-    nms_p, raw_p = fastnms.fast_nms_plain(img, THRESH)
 
     # B2: BRIEF on that frame's K keypoints (plain detector path)
-    uv, _, kvalid, _ = frontend.select_keypoints(nms_p, max_kps=K,
-                                                 raw_score=raw_p)
-    angle = frontend.compute_orientations(img, uv)
-    blur = frontend.gaussian_blur(img, sigma=2.0)
-    ca, sa = torch.cos(angle), torch.sin(angle)
+    blur, uv, ca, sa, kvalid = brief_inputs(img, K)
     d_k = brief.brief(blur, uv, ca, sa)
     d_p = frontend.brief_from_rotation(blur, uv, ca, sa)
     torch.cuda.synchronize()
-    bad_words = (d_k != d_p)[kvalid].sum().item()
+    bad_words = (d_k != d_p).sum().item()
     bit_err = 0.0 if bad_words == 0 else 1.0
-    log(f"B2 brief: {int(kvalid.sum())} valid keypoints, "
+    log(f"B2 brief: {K} keypoints ({int(kvalid.sum())} valid), "
         f"{bad_words} differing words")
     if bad_words:
         raise AssertionError("BRIEF kernel is not bit-equal")
     rec["brief"] = dict(max_abs_err=bit_err, args=(blur, uv, ca, sa))
+    # the loop run's K: the first BRIEF_LOOP_K of those keypoints
+    args = (blur, *(x[:BRIEF_LOOP_K] for x in (uv, ca, sa)))
+    if not torch.equal(brief.brief(*args),
+                       frontend.brief_from_rotation(*args)):
+        raise AssertionError(f"BRIEF kernel is not bit-equal at "
+                             f"K={BRIEF_LOOP_K}")
+    assert_same_bits(lambda: (brief.brief(*args),), "B2 brief")
+    rec[f"brief_K{BRIEF_LOOP_K}"] = dict(max_abs_err=0.0, args=args)
 
     # B3: the map slab (N = 2048) against the frame's K descriptors
     fdesc = torch.where(kvalid[:, None], d_p, torch.zeros_like(d_p))
@@ -630,6 +695,18 @@ def phase_check(inputs):
         if kind == "ties":
             rec["matcher_extra"] = dict(max_abs_err=err, args=tuple(args))
     return rec
+
+
+def brief_inputs(img, n_kps):
+    """B2's inputs on ``img`` as ``extract_features`` forms them (the
+    plain detector): the blurred image, the top ``n_kps`` keypoints,
+    the cosines and sines of their angles, and their validity."""
+    nms, raw = fastnms.fast_nms_plain(img, THRESH)
+    uv, _, kvalid, _ = frontend.select_keypoints(nms, max_kps=n_kps,
+                                                 raw_score=raw)
+    angle = frontend.compute_orientations(img, uv)
+    blur = frontend.gaussian_blur(img, sigma=2.0)
+    return blur, uv, torch.cos(angle), torch.sin(angle), kvalid
 
 
 def check_fast_nms(img, threshold, what):
@@ -815,14 +892,9 @@ def phase_kernel_times(rec, launched):
     img, thresh = rec["fast_nms"]["args"]
     blur, uv, ca, sa = rec["brief"]["args"]
     desc, valid, fdesc, kvalid = rec["matcher"]["args"]
-    Kn = uv.shape[0]
-    # per bit: 8 products, 6 sums, 4 roundings, 8 clamps, 2 addresses
-    # (2 ops each), 1 compare
-    brief_ops = Kn * 256 * 31
-    brief_bytes = 4 * (blur.numel() + Kn * 4 + 256 * 4) + Kn * 32
     work = {
         "fast_nms": fast_work(img, thresh),
-        "brief": (brief_bytes, brief_ops),
+        "brief": brief_work(blur, uv.shape[0]),
         "matcher": matcher_work(desc.shape[0], fdesc.shape[0]),
     }
     calls = {
@@ -835,6 +907,25 @@ def phase_kernel_times(rec, launched):
                     lambda: hamming_top2(desc, valid, fdesc, kvalid)),
     }
     return time_kernels(calls, work, rec, launched)
+
+
+def brief_work(blur, n_kps):
+    """(bytes, float operations) of one B2 call: the image read once,
+    uv, cos and sin per keypoint, the pattern, the words written; per
+    bit 8 products, 6 sums, 4 roundings, 8 clamps, 2 addresses (2
+    operations each) and 1 compare."""
+    return (4 * (blur.numel() + n_kps * 4 + 256 * 4) + n_kps * 32,
+            n_kps * 256 * 31)
+
+
+def cost_work(prob):
+    """(bytes, float operations) of one B6 call: poses, points and the
+    (point, slot) tables read once, the cost written; per observation
+    the residual, its norm, the Huber weight and w e^2 (40)."""
+    C = prob.cam_pose.shape[0]
+    P, O = prob.obs_cam.shape
+    return (C * 28 + P * 12 + P * O * 17 + 4,
+            int(prob.obs_valid.sum()) * 40)
 
 
 def fast_work(img, threshold, arc=9):
@@ -945,22 +1036,17 @@ def phase_check_slam_kernels():
     lam = torch.tensor(1e-3, device=DEVICE)
     S1, b1, W1, Hi1, bp1 = schur.schur_reduce_kernel(prob, lam, 0.01)
     S0, b0, W0, Hi0, bp0 = ba.schur_reduce(prob, lam, 0.01)
-    c1 = schur.ba_cost_kernel(prob, 0.01)
-    c0 = ba.ba_cost(prob, 0.01)
     torch.cuda.synchronize()
     errs = assert_schur_close((S1, b1, W1, Hi1, bp1),
                               (S0, b0, W0, Hi0, bp0), "C=8, P=1024, O=8")
-    errs["cost"] = (c1 - c0).abs().max().item()
-    torch.testing.assert_close(c1, c0, rtol=1e-5, atol=0.0,
-                               msg="B6 cost disagrees")
-    log("B5 schur / B6 cost vs plain (C=8, P=1024, O=8): max abs err "
+    log("B5 schur vs plain (C=8, P=1024, O=8): max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     assert_same_bits(lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
                      "B5 schur")
-    rec["schur"] = dict(max_abs_err=max(v for k, v in errs.items()
-                                        if k != "cost"),
-                        args=(prob, lam))
-    rec["ba_cost"] = dict(max_abs_err=errs["cost"], args=(prob,))
+    rec["schur"] = dict(max_abs_err=max(errs.values()), args=(prob, lam))
+    rec["ba_cost"] = check_cost(prob, prob, tuple(x.cpu().numpy()
+                                                  for x in prob),
+                                "C=8, P=1024, O=8")
 
     # B5 at the widest camera count of its contract and at the loop
     # run's window, few cameras per point, repeated cameras, pad slots
@@ -978,6 +1064,7 @@ def phase_check_slam_kernels():
                          f"B5 schur ({label})")
         rec["schur_" + label] = dict(max_abs_err=max(e.values()),
                                      args=(wide, lam), plain=plain)
+        rec["ba_cost_" + label] = check_cost(wide, plain, fields, label)
 
     out_k, st_k = ba.bundle_adjust(prob, iters=6, use_kernels=True)
     out_p, st_p = ba.bundle_adjust(prob, iters=6, use_kernels=False)
@@ -993,6 +1080,30 @@ def phase_check_slam_kernels():
     torch.testing.assert_close(out_k.cam_pose, out_p.cam_pose, rtol=0.0,
                                atol=1e-4)
     return rec
+
+
+def check_cost(prob, plain, fields, what):
+    """B6 on ``prob`` within rtol 1e-5 of the plain version on ``plain``
+    (``prob`` with pads set to camera 0), bit for bit the float32 model
+    of its summation order on ``fields`` (``cost_order``), and two calls
+    the same bits; the record for timing."""
+    got = schur.ba_cost_kernel(prob, 0.01)
+    ref = ba.ba_cost(plain, 0.01)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0,
+                               msg=f"B6 cost disagrees ({what})")
+    bits = int(got.cpu().numpy().view(np.uint32))
+    model = int(cost_order(fields, 0.01).view(np.uint32))
+    err = (got - ref).abs().item()
+    log(f"B6 cost ({what}): {got.item()!r} (float32 0x{bits:08x}), plain "
+        f"{ref.item()!r}, max abs err {err:.3g}; the model of its order "
+        f"0x{model:08x}")
+    if bits != model:
+        raise AssertionError(f"B6 cost: other bits than its order's model "
+                             f"({what})")
+    assert_same_bits(lambda: (schur.ba_cost_kernel(prob, 0.01),),
+                     f"B6 cost ({what})")
+    return dict(max_abs_err=err, args=(prob,), plain=plain,
+                hex=f"0x{bits:08x}")
 
 
 def load_frames():
@@ -1143,13 +1254,8 @@ def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     SLAM path's shapes, with bounds from this run's inputs."""
     g = rec["gated_matcher"]["args"]
     prob, lam = rec["schur"]["args"]
-    C = prob.cam_pose.shape[0]
-    P, O = prob.obs_cam.shape
-    n_obs = int(prob.obs_valid.sum())
-    # B6 per observation: residual, norm and Huber weight, w e^2 (40)
-    cost_work = (C * 64 + P * 12 + P * O * 16 + 4, n_obs * 40)
     work = {"gated_matcher": gated_matcher_work(*g),
-            "schur": schur_work(prob), "ba_cost": cost_work}
+            "schur": schur_work(prob), "ba_cost": cost_work(prob)}
     calls = {
         "gated_matcher": (lambda: matcher.gated_top2_kernel(*g),
                           lambda: hamming_top2_gated(*g)),
@@ -1414,8 +1520,9 @@ def time_kernels(calls, work, rec, launched, per=None):
 
 
 def phase_extra_kernel_times(rec):
-    """B5 and B3 at their extra shapes: device times beside the plain
-    versions and the bounds, for the lines before the kernels line."""
+    """B5, B6, B3, B4, B1 and B2 at their extra shapes: device times
+    beside the plain versions and the bounds, for the lines before the
+    kernels line."""
     pairs = {}
     for label in SCHUR_EXTRA:
         entry = rec["schur_" + label]
@@ -1424,6 +1531,15 @@ def phase_extra_kernel_times(rec):
             entry, lambda p=prob: schur.schur_reduce_kernel(p, lam, 0.01),
             lambda p=entry["plain"]: ba.schur_reduce(p, lam, 0.01),
             schur_work(prob))
+        entry = rec["ba_cost_" + label]
+        pairs["ba_cost_" + label] = (
+            entry, lambda p=prob: schur.ba_cost_kernel(p, 0.01),
+            lambda p=entry["plain"]: ba.ba_cost(p, 0.01), cost_work(prob))
+    entry = rec[f"brief_K{BRIEF_LOOP_K}"]
+    pairs[f"brief_K{BRIEF_LOOP_K}"] = (
+        entry, lambda: brief.brief(*entry["args"]),
+        lambda: frontend.brief_from_rotation(*entry["args"]),
+        brief_work(entry["args"][0], BRIEF_LOOP_K))
     entry = rec["matcher_extra"]
     pairs["matcher_N{N}_M{M}".format(**MATCHER_EXTRA)] = (
         entry, lambda: matcher.hamming_top2_kernel(*entry["args"]),
@@ -1443,6 +1559,8 @@ def phase_extra_kernel_times(rec):
     for label, (entry, kfn, pfn, work) in pairs.items():
         out[label], ks = time_pair(kfn, pfn, work)
         out[label]["max_abs_err"] = entry["max_abs_err"]
+        if "hex" in entry:
+            out[label]["float32_hex"] = entry["hex"]
         log(f"{label}: kernel {ks[0]:.6f}/{ks[1]:.6f} ms, plain "
             f"{ks[2]:.6f}/{ks[3]:.6f} ms; bound "
             f"{out[label]['bound_ms']:.6f} ms ({out[label]['bound_by']}); "

@@ -81,11 +81,57 @@
 // 1e-4 against the plain version; TF32 keeps three digits, and a 3xTF32
 // split is not worth it for 7 M (C = 8) to 113 M (C = 32) multiply-adds.
 //
-// B6 shares B5's residual stage (residual_stage below): a kernel builds
-// the camera table in global memory, one thread per point sums w e^2
-// over its slots, each block reduces its threads in a fixed tree, and
-// one block sums the block partials in a fixed order.
+// B6, the robust cost sum w e^2 of the same inputs, shares B5's residual
+// stage (residual_stage<true> below: x / z, as ba_cost divides) and is
+// one launch of cost_kernel.  Its summation order is fixed, and is the
+// order of the three-launch design it replaced, so its bits are
+// that design's (chip_smoke.cost_order models it in float32 numpy, bit
+// for bit on the card):
+//   (1) per point, the slot terms (w e) e in slot order from +0 (a slot
+//       without weight adds nothing);
+//   (2) 256 consecutive points per partial, padded with zeros, summed in
+//       the tree in which value t takes value t + h for h = 128, 64,
+//       ..., 1;
+//   (3) value t of 256 folds partials t, t + 256, ... from 0, then the
+//       same tree.
+// A block takes L = COST_POINTS points of one partial, not neighbours
+// but the leaves j, j + 256/L, j + 2*256/L, ... (j the block's place
+// among the partial's 256/L blocks): they are exactly the leaves below
+// value j of the tree's level h = 256/L, so the block forms that value
+// whole and no value crosses blocks before it.  Each block: C threads
+// copy their camera's t and q (all the cost reads of the table) into
+// shared memory while every thread reads its (point, slot) pair; after
+// one barrier a thread per pair evaluates its residual and writes its
+// term to shared memory (chunks of slots when a point has more than
+// fit); lane j of warp 0 folds the terms of leaves j, j + 32, ... in
+// slot order (1), adds them in the tree's levels down to 32 leaves in
+// registers and runs the rest by __shfl_down_sync.  The blocks of a
+// partial, and up to COST_CLUSTER blocks (four partials at the default
+// L = 64), form one thread-block cluster: each block sends its value
+// into rank 0's shared memory with st.async, counted on an mbarrier of
+// rank 0 (set up before the cluster barrier every block arrives at on
+// entry and waits at before sending), and exits; rank 0's warp 0 forms
+// the partials from their 256/L values in registers, folds them (3) and
+// runs the whole tree, levels 128, 64, 32 in registers and 16 ... 1 by
+// shuffles, into out.  Above one cluster (P > 1024 at the defaults)
+// rank 0 writes its partials to the scratch and takes a ticket (one
+// atom.acq_rel.gpu.inc on cost_ticket, which wraps back to 0 with the
+// last cluster, so the next call and the next CUDA-graph replay start
+// from 0); the last cluster folds every partial.  No float atomics; the
+// ticket assumes one stream, as the port has (two such calls running at
+// once on two streams would share it).
+//
+// What holds B6 is latency, one link after another (scripts/
+// tune_kernels.py b6 splits it by phase; 0.0035 ms at C = 8, P = 1024,
+// O = 8 on an NVIDIA H100 80GB HBM3 at 700 W, of which 0.0018 ms the
+// kernel without its pairs or the hand-over, 0.0011 ms the hand-over to
+// rank 0, 0.0002 ms reading the pairs and 0.0005 ms the residuals'
+// divisions and square roots).  The design it replaced took 0.0074 ms
+// in three launches; a first version of this one, with a ticket through
+// global memory for every block in place of the cluster, 0.0038 to
+// 0.0041 ms (another call).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,6 +141,22 @@
 #endif
 #ifndef GSLAM_SCHUR_GROUP
 #define GSLAM_SCHUR_GROUP 8
+#endif
+#ifndef GSLAM_COST_THREADS
+#define GSLAM_COST_THREADS 512
+#endif
+#ifndef GSLAM_COST_POINTS
+#define GSLAM_COST_POINTS 64
+#endif
+#ifndef GSLAM_COST_CLUSTER
+#define GSLAM_COST_CLUSTER 16
+#endif
+// 0: no pairs read and no combining across blocks (block 0 writes its
+// value), 1: no pairs read (zero terms), 2: pairs read but no residual
+// (a term made of the raw inputs), 3 (the default): the cost.  Tuning
+// builds stop early to split the kernel's time by phase.
+#ifndef GSLAM_COST_PHASE
+#define GSLAM_COST_PHASE 3
 #endif
 
 namespace {
@@ -109,10 +171,20 @@ constexpr int REC = 2 * N_UV + N_H + N_G;
 constexpr int SLOT = 9;      // a slot's terms of Hpp (6) and bp (3)
 constexpr int T5 = GSLAM_SCHUR_THREADS;   // schur_groups threads per block
 constexpr int GROUP = GSLAM_SCHUR_GROUP;  // most points per group
-constexpr int T2 = 256;      // schur_total and cost threads per block
+constexpr int T2 = 256;      // schur_total threads per block
 constexpr int MAX_BLOCKS = 264;           // schur_groups: two per SM
 constexpr long long MAX_PARTIAL_FLOATS = 2621440;   // 10 MB of partials
 constexpr int SMEM_MAX = 232448;          // bytes a block can opt into
+constexpr int T6 = GSLAM_COST_THREADS;    // cost_kernel threads per block
+constexpr int L6 = GSLAM_COST_POINTS;     // points per cost block
+constexpr int CL6 = GSLAM_COST_CLUSTER;   // most blocks per cluster
+constexpr int PART = 256;                 // points per partial
+constexpr int S6 = PART / L6;             // cost blocks per partial
+constexpr int TERMS = 4096;               // slot terms a chunk stages
+static_assert(L6 == 32 || L6 == 64 || L6 == 128, "COST_POINTS: 32-128");
+static_assert(T6 % 32 == 0 && T6 >= L6 && T6 <= 1024, "COST_THREADS");
+static_assert(CL6 >= S6 && CL6 <= 16 && (CL6 & (CL6 - 1)) == 0,
+              "COST_CLUSTER: a power of two from 256 / COST_POINTS to 16");
 
 struct Obs {
     float x, y, iz, iz2, rx, ry, e, w;
@@ -144,13 +216,6 @@ __device__ __forceinline__ void camera_row(const float* __restrict__ T,
     R[8] = 1.0f - 2.0f * (xx + yy);
     for (int k = 0; k < 7; ++k) R[9 + k] = T[k];
     R[16] = fixed ? 0.0f : 1.0f;
-}
-
-// The (C, 17) table in global memory, for the cost kernel.
-__global__ void camera_table(const float* __restrict__ cam_pose, int C,
-                             float* __restrict__ table) {
-    const int c = threadIdx.x;
-    if (c < C) camera_row(cam_pose + 7 * c, false, table + POSE * c);
 }
 
 // projection, residual and robust weight of slot o of point (px, py, pz)
@@ -638,47 +703,252 @@ schur_total(const float* __restrict__ partial, int n_blocks, int C,
     S[e] = h - acc;
 }
 
-__global__ void __launch_bounds__(T2)
-cost_points(const float* __restrict__ pose, const float* __restrict__ pts,
+// Clusters of cost_kernel that have finished the running call, when a
+// call takes more than one; the last one sets it back to 0.
+__device__ unsigned int cost_ticket;
+
+// A (point, slot) pair as the cost reads it; a point past the end reads
+// nothing and has no weight.
+struct CostPair {
+    float px, py, pz, u, v, wt;
+    int c;
+};
+
+__device__ __forceinline__ CostPair load_cost_pair(
+        const float* __restrict__ pts, const int32_t* __restrict__ cam,
+        const float* __restrict__ uv, const uint8_t* __restrict__ valid,
+        const float* __restrict__ weight, int p, int P, int O, int o) {
+    CostPair r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
+    if (p < P) {
+        const size_t q = (size_t)p * O + o;
+        r.px = pts[3 * p];
+        r.py = pts[3 * p + 1];
+        r.pz = pts[3 * p + 2];
+        r.u = uv[2 * q];
+        r.v = uv[2 * q + 1];
+        r.wt = valid[q] ? weight[q] : 0.0f;
+        r.c = cam[q];
+    }
+    return r;
+}
+
+__device__ __forceinline__ float cost_term(const float* table,
+                                           const CostPair& in, int C,
+                                           float huber) {
+#if GSLAM_COST_PHASE <= 1
+    return 0.0f;
+#elif GSLAM_COST_PHASE == 2
+    return in.px + in.py + in.pz + in.u + in.v + in.wt + (float)in.c;
+#else
+    const Obs s = residual_stage<true>(table, in.c, C, in.px, in.py, in.pz,
+                                       in.u, in.v, in.wt, huber);
+    return s.w != 0.0f ? s.w * s.e * s.e : 0.0f;
+#endif
+}
+
+// Value t = lane + 32 i of step (3), from r[i], through the whole tree:
+// levels 128, 64 and 32 in registers, 16 ... 1 by shuffles; lane 0
+// holds the sum.
+__device__ __forceinline__ float tree256(float* r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] += r[i + 4];        // h = 128
+    r[0] += r[2];                                         // h = 64
+    r[1] += r[3];
+    r[0] += r[1];                                         // h = 32
+    float v = r[0];
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, h);
+    return v;
+}
+
+// Block b = part * S6 + j: leaves j + S6 l (l < L6) of partial `part`,
+// which it sums to value j of the tree's level h = S6.  Rank 0 of each
+// cluster forms the cluster's partials; with one cluster it writes
+// out[0], else the last cluster (ticket) does.  The header has the
+// order.
+__global__ void __launch_bounds__(T6)
+cost_kernel(const float* __restrict__ cam_pose, const float* __restrict__ pts,
             const int32_t* __restrict__ cam, const float* __restrict__ uv,
             const uint8_t* __restrict__ valid,
             const float* __restrict__ weight, int C, int P, int O,
-            float huber, float* __restrict__ partial) {
-    __shared__ float red[T2];
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    float acc = 0.0f;
-    if (p < P) {
-        const float px = pts[3 * p], py = pts[3 * p + 1], pz = pts[3 * p + 2];
-        for (int o = 0; o < O; ++o) {
-            const size_t q = (size_t)p * O + o;
-            const Obs s = residual_stage<true>(pose, cam[q], C, px, py, pz,
-                                               uv[2 * q], uv[2 * q + 1],
-                                               valid[q] ? weight[q] : 0.0f,
-                                               huber);
-            if (s.w != 0.0f) acc += s.w * s.e * s.e;
-        }
+            float huber, float* __restrict__ partials,
+            float* __restrict__ out) {
+    __shared__ float table[MAX_CAMS * POSE];
+    __shared__ float terms[TERMS];
+    __shared__ float cvals[CL6];         // rank 0: the cluster's values
+    __shared__ uint64_t cbar;            // rank 0: their arrival
+    namespace cg = cooperative_groups;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x;
+    const unsigned rank = cluster.block_rank();
+    const unsigned bar_a = (unsigned)__cvta_generic_to_shared(&cbar);
+#if GSLAM_COST_PHASE >= 1
+    if (rank == 0 && tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     :: "r"(bar_a) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    red[threadIdx.x] = acc;
+    // arrive now, wait before writing to rank 0's shared memory: every
+    // block of the cluster has started (and rank 0's barrier is set up)
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+#endif
+    const int part = blockIdx.x / S6;
+    const int p0 = part * PART + (blockIdx.x - part * S6);   // leaf 0
+    // slots a chunk stages per point, and their odd shared-memory stride
+    const int oc = min(O, TERMS / L6 - 1);
+    const int stride = oc | 1;
+    auto pair = [&](int e, int n, int o0) {
+        const int l = e / n;
+        return load_cost_pair(pts, cam, uv, valid, weight, p0 + S6 * l, P,
+                              O, o0 + e - l * n);
+    };
+    // this thread's first pair, read while the table is built
+    CostPair first = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
+#if GSLAM_COST_PHASE >= 2
+    if (tid < L6 * oc) first = pair(tid, oc, 0);
+#endif
+    if (tid < C)
+        for (int k = 0; k < 7; ++k)
+            table[POSE * tid + 9 + k] = cam_pose[7 * tid + k];
     __syncthreads();
-    for (int h = T2 / 2; h > 0; h >>= 1) {      // fixed-order tree
-        if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+
+    constexpr int LPL = L6 / 32;      // leaves per lane of warp 0
+    float acc[LPL];                   // lane j: leaves j + 32 m, fold (1)
+#pragma unroll
+    for (int m = 0; m < LPL; ++m) acc[m] = 0.0f;
+    for (int o0 = 0; o0 < O; o0 += oc) {
+        const int n = min(oc, O - o0);
+        for (int e = tid; e < L6 * n; e += T6) {
+            const CostPair in = (o0 == 0 && e == tid) ? first
+                                                      : pair(e, n, o0);
+            const int l = e / n;
+            terms[l * stride + e - l * n] = cost_term(table, in, C, huber);
+        }
         __syncthreads();
+        if (tid < 32)
+            for (int o = 0; o < n; ++o)
+#pragma unroll
+                for (int m = 0; m < LPL; ++m)
+                    acc[m] += terms[(tid + 32 * m) * stride + o];
+        if (o0 + oc < O) __syncthreads();      // the next chunk overwrites
     }
-    if (threadIdx.x == 0) partial[blockIdx.x] = red[0];
+
+    // levels h = 128 ... S6 of the tree (2): leaf l pairs with l + L6/2,
+    // ...; in registers down to 32 leaves, then by shuffles
+    const unsigned FULL = 0xffffffffu;
+#pragma unroll
+    for (int h = LPL / 2; h > 0; h >>= 1)
+#pragma unroll
+        for (int m = 0; m < h; ++m) acc[m] += acc[m + h];
+    float v = acc[0];
+    if (tid < 32) {
+#pragma unroll
+        for (int h = 16; h > 0; h >>= 1) v += __shfl_down_sync(FULL, v, h);
+    }
+#if GSLAM_COST_PHASE == 0
+    if (blockIdx.x == 0 && tid == 0) out[0] = v;
+    return;
+#endif
+    const int cl = (int)cluster.num_blocks();
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    if (rank != 0) {
+        // v into rank 0's cvals[rank], counted on its barrier
+        if (tid == 0) {
+            const unsigned va = (unsigned)__cvta_generic_to_shared(
+                &cvals[rank]);
+            unsigned rva, rba;
+            asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
+                         : "=r"(rva) : "r"(va));
+            asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
+                         : "=r"(rba) : "r"(bar_a));
+            asm volatile("st.async.shared::cluster.mbarrier::complete_tx::"
+                         "bytes.b32 [%0], %1, [%2];"
+                         :: "r"(rva), "r"(__float_as_uint(v)), "r"(rba)
+                         : "memory");
+        }
+        return;
+    }
+    if (tid >= 32) return;
+    if (tid == 0) {
+        cvals[0] = v;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], "
+                     "%1;" :: "r"(bar_a), "r"(4 * (cl - 1)) : "memory");
+    }
+    __syncwarp();
+    {
+        unsigned done = 0;
+        while (!done)
+            asm volatile("{\n\t.reg .pred p;\n\t"
+                         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+                         "0;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+                         : "=r"(done) : "r"(bar_a) : "memory");
+    }
+
+    // rank 0, warp 0: lane q < ppc forms partial q of the cluster from
+    // its S6 values (levels h = S6/2 ... 1)
+    const int ppc = cl / S6;
+    float r[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float pq = 0.0f;
+    if (tid < ppc) {
+        float nd[S6];
+#pragma unroll
+        for (int m = 0; m < S6; ++m) nd[m] = cvals[tid * S6 + m];
+#pragma unroll
+        for (int h = S6 / 2; h > 0; h >>= 1)
+#pragma unroll
+            for (int m = 0; m < h; ++m) nd[m] += nd[m + h];
+        pq = nd[0];
+    }
+    if ((int)gridDim.x == cl) {       // one cluster: partial t is value t
+        r[0] = 0.0f;
+        r[0] += pq;                   // (3): the fold from 0
+        v = tree256(r);
+        if (tid == 0) out[0] = v;
+        return;
+    }
+    // more clusters: publish the partials, take a ticket
+    const unsigned n_cl = gridDim.x / cl;
+    const int first_part = (int)(blockIdx.x / cl) * ppc;
+    if (tid < ppc) partials[first_part + tid] = pq;
+    __syncwarp();
+    unsigned last = 0;
+    if (tid == 0) {
+        // release: the partials before the ticket; acquire: every
+        // cluster's partials after it
+        unsigned old;
+        asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                     : "=r"(old) : "l"(&cost_ticket), "r"(n_cl - 1)
+                     : "memory");
+        last = old == n_cl - 1;
+    }
+    last = __shfl_sync(FULL, last, 0);
+    __syncwarp();                     // the lanes' loads after the acquire
+    if (!last) return;
+    const int nb = (int)n_cl * ppc;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        float a = 0.0f;
+        for (int k = tid + 32 * i; k < nb; k += PART)
+            a += __ldcg(partials + k);
+        r[i] = a;
+    }
+    v = tree256(r);
+    if (tid == 0) out[0] = v;
 }
 
-__global__ void __launch_bounds__(T2)
-cost_total(const float* __restrict__ partial, int n, float* __restrict__ out) {
-    __shared__ float red[T2];
-    float acc = 0.0f;
-    for (int k = threadIdx.x; k < n; k += T2) acc += partial[k];
-    red[threadIdx.x] = acc;
-    __syncthreads();
-    for (int h = T2 / 2; h > 0; h >>= 1) {
-        if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) out[0] = red[0];
+// Blocks (a whole number of clusters) and cluster size of cost_kernel
+// for P points: S6 blocks per partial, clusters of the smallest power of
+// two from S6 to CL6 that holds them all, else of CL6.
+struct CostPlan {
+    int blocks, cluster;
+};
+
+CostPlan cost_plan(int P) {
+    const int need = (P + PART - 1) / PART * S6;
+    int cl = S6;
+    while (cl < need && cl < CL6) cl *= 2;
+    return {(need + cl - 1) / cl * cl, cl};
 }
 
 // Launch shape of schur_groups: points per group (GROUP, or as many as
@@ -774,8 +1044,17 @@ extern "C" int gslam_schur(const float* cam_pose, const uint8_t* cam_fixed,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Scratch floats the caller allocates for gslam_ba_cost: the partials,
+// when more than one cluster forms them.
+extern "C" long long gslam_ba_cost_scratch(int P) {
+    const CostPlan pl = cost_plan(P);
+    return pl.blocks / S6;
+}
+
 // Robust cost sum w e^2 of the same inputs into out (1,); scratch:
-// C * 17 + ceil(P / 256) floats.  Returns the CUDA error of the launches.
+// gslam_ba_cost_scratch(P) floats.  One launch; needs 1 <= C <= 32,
+// P >= 1, O >= 1 and, above 1024 points (more than one cluster), one
+// stream at a time (the ticket).  Returns the CUDA error of the launch.
 extern "C" int gslam_ba_cost(const float* cam_pose, const float* pts,
                              const int32_t* cam, const float* uv,
                              const uint8_t* valid, const float* weight,
@@ -783,16 +1062,26 @@ extern "C" int gslam_ba_cost(const float* cam_pose, const float* pts,
                              float* scratch, void* stream) {
     if (C < 1 || C > MAX_CAMS || P < 1 || O < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int nb = (P + T2 - 1) / T2;
-    float* table = scratch;
-    camera_table<<<1, MAX_CAMS, 0, s>>>(cam_pose, C, table);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cost_points<<<nb, T2, 0, s>>>(table, pts, cam, uv, valid, weight, C, P,
-                                  O, huber, table + C * POSE);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cost_total<<<1, T2, 0, s>>>(table + C * POSE, nb, out);
-    return static_cast<int>(cudaGetLastError());
+    static bool opted_in = false;       // clusters above 8 blocks
+    if (CL6 > 8 && !opted_in) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            cost_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        opted_in = true;
+    }
+    const CostPlan pl = cost_plan(P);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(pl.blocks);
+    cfg.blockDim = dim3(T6);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = pl.cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, cost_kernel, cam_pose, pts, cam, uv, valid, weight, C, P, O,
+        huber, scratch, out));
 }

@@ -38,6 +38,8 @@ def _lib() -> ctypes.CDLL:
     lib.gslam_schur_scratch.argtypes = [_I, _I]
     lib.gslam_schur.restype = _I
     lib.gslam_schur.argtypes = [_P] * 9 + [_I, _I, _I, _F] + [_P] * 7
+    lib.gslam_ba_cost_scratch.restype = ctypes.c_longlong
+    lib.gslam_ba_cost_scratch.argtypes = [_I]
     lib.gslam_ba_cost.restype = _I
     lib.gslam_ba_cost.argtypes = [_P] * 6 + [_I, _I, _I, _F, _P, _P, _P]
     return lib
@@ -105,15 +107,16 @@ def ba_cost_kernel(problem: BundleProblem, huber_delta: float = 0.01
                    ) -> torch.Tensor:
     """Total robust chi2 as :func:`ba_cost` computes it: the plain
     version on CPU tensors, the B6 kernel on CUDA ones (a 0-d tensor on
-    the card)."""
+    the card; one launch, on the current stream)."""
     global cost_launches
     if problem.cam_pose.device.type == "cpu":
         return ba_cost(problem, huber_delta)
     a, C, P, O = _inputs(problem)
     dev = problem.cam_pose.device
+    lib = _lib()
     out = torch.empty((), device=dev)
-    scratch = torch.empty(C * 17 + (P + 255) // 256, device=dev)
-    err = _lib().gslam_ba_cost(
+    scratch = torch.empty(int(lib.gslam_ba_cost_scratch(P)), device=dev)
+    err = lib.gslam_ba_cost(
         *(a[n].data_ptr() for n in ("cam_pose", "point_xyz", "obs_cam",
                                     "obs_uv", "obs_valid", "obs_weight")),
         C, P, O, float(huber_delta), out.data_ptr(), scratch.data_ptr(),

@@ -13,9 +13,14 @@ tree's kernels and prints one JSON line:
   0.06) and on the first frame of the 64-frame SLAM sequence (threshold
   0.08), of the B3 matcher on ``track_forward``'s inputs, of the B4 gated
   matcher at N = 2048, M = 512 (``chip_smoke.gated_inputs``) and at
-  N = 768, M = 384 (the first rows and keypoints of those inputs), and
-  of the B5 Schur reduction on the local-BA problem (C = 8, P = 1024,
-  O = 8);
+  N = 768, M = 384 (the first rows and keypoints of those inputs), of
+  the B5 Schur reduction on the local-BA problem (C = 8, P = 1024,
+  O = 8), of the B6 cost on that problem and on ``chip_smoke.SCHUR_EXTRA``'s
+  (C = 32, P = 1024 and the loop run's C = 4, P = 384), and of B2 BRIEF
+  on ``track_forward``'s frame at K = 512 and at its first 384
+  keypoints;
+- B6's output at those three shapes as float32 hex, and a SHA-256 of
+  B2's words at K = 512 (equal fields show equal outputs);
 - device ms of ``track_forward``'s stages (``chip_smoke.phase_stages``;
   ``match`` is the matcher call with its PyTorch decisions);
 - a warm 64-frame ``KeyframeSLAM`` run: ms/frame, the timer sections in
@@ -26,6 +31,7 @@ limit.  A tree to compare with is unpacked with ``git archive`` into a
 directory that ``.gitignore`` lists.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -41,7 +47,9 @@ def worker() -> int:
     import chip_smoke as cs
     from gslam_tpu_torch.models.graft import example_inputs
     from gslam_tpu_torch.ops import frontend
-    from gslam_tpu_torch.ops.cuda import build, fastnms, matcher, schur
+    from gslam_tpu_torch.ops.cuda import (
+        brief, build, fastnms, matcher, schur,
+    )
     from gslam_tpu_torch.ops.matching import gate_squared
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -54,6 +62,15 @@ def worker() -> int:
     lam = torch.tensor(1e-3, device="cuda")
     camera, frames = cs.load_frames()
     frame = torch.as_tensor(frames[0].image, device="cuda")
+    nms, raw = fastnms.fast_nms_plain(img, cs.THRESH)
+    uv = frontend.select_keypoints(nms, max_kps=cs.K, raw_score=raw)[0]
+    angle = frontend.compute_orientations(img, uv)
+    b2 = (frontend.gaussian_blur(img, sigma=2.0), uv, torch.cos(angle),
+          torch.sin(angle))
+    b2_loop = (b2[0], *(x[:384] for x in b2[1:]))
+    costs = {"C8_P1024_O8": prob}
+    for label, case in cs.SCHUR_EXTRA.items():
+        costs[label] = cs.to_problem(cs.ba_case(**case, seed=1), "cuda")
     g = cs.gated_inputs()
     g_loop = [x[:768] for x in g[:2]] + [x[:384] for x in g[2:4]] \
         + [g[4][:768], g[5][:384]]
@@ -72,7 +89,17 @@ def worker() -> int:
         "schur_ms": cs.graph_ms(lambda: schur.schur_reduce_kernel(
             prob, lam, 0.01)),
         "stages_ms": cs.phase_stages(inputs),
+        "brief_ms": cs.graph_ms(lambda: brief.brief(*b2)),
+        "brief_K384_ms": cs.graph_ms(lambda: brief.brief(*b2_loop)),
+        "brief_sha256": hashlib.sha256(
+            brief.brief(*b2).cpu().numpy().tobytes()).hexdigest(),
+        "ba_cost_ms": {}, "ba_cost_hex": {},
     }
+    for label, p in costs.items():
+        out["ba_cost_ms"][label] = cs.graph_ms(
+            lambda: schur.ba_cost_kernel(p, 0.01))
+        bits = schur.ba_cost_kernel(p, 0.01).cpu().numpy().view(np.uint32)
+        out["ba_cost_hex"][label] = f"0x{int(bits):08x}"
     cs.run_slam(camera, frames)                      # warm-up
     slam, secs = cs.run_slam(camera, frames)
     n = len(frames)
@@ -121,7 +148,10 @@ def main() -> int:
               f"{res['gated_ms']:.6f} ms (N=768, M=384 "
               f"{res['gated_N768_M384_ms']:.6f}), matcher "
               f"{res['matcher_ms']:.6f} ms, schur "
-              f"{res['schur_ms']:.6f} ms, match stage "
+              f"{res['schur_ms']:.6f} ms, ba_cost {res['ba_cost_ms']} ms "
+              f"{res['ba_cost_hex']}, brief {res['brief_ms']:.6f} ms "
+              f"(K=384 {res['brief_K384_ms']:.6f}) words "
+              f"{res['brief_sha256'][:16]}, match stage "
               f"{res['stages_ms']['match']:.4f} ms, SLAM "
               f"{res['slam_ms_per_frame']:.3f} ms/frame, local_ba "
               f"{sp.get('local_ba', float('nan')):.4f} ms/frame, ATE "

@@ -1,9 +1,9 @@
 """Time hand-written kernels of gslam_tpu_torch over their tuning
 constants on one NVIDIA card.
 
-    python3 scripts/tune_kernels.py [b1] [b4] [b5] [b3]
+    python3 scripts/tune_kernels.py [b1] [b4] [b5] [b6] [b2] [b3]
 
-(all four when none is named).  A source takes its tuning constants as
+(all six when none is named).  A source takes its tuning constants as
 ``-D`` macros at build time, the chosen values being its defaults:
 
 - ``csrc/fastnms.cu`` (B1): the output tile ``GSLAM_FAST_TW`` x
@@ -18,15 +18,27 @@ constants on one NVIDIA card.
   N = 768, M = 384 (the loop run) and N = 2048, M = 2500;
 - ``csrc/schur.cu`` (B5): ``GSLAM_SCHUR_THREADS`` per block and
   ``GSLAM_SCHUR_GROUP`` points per group; timed at C = 8, P = 1024,
-  O = 8, at C = 32 and at the loop run's C = 4, P = 384.
+  O = 8, at C = 32 and at the loop run's C = 4, P = 384;
+- ``csrc/schur.cu`` (B6): ``GSLAM_COST_THREADS`` per block,
+  ``GSLAM_COST_POINTS`` points per block and ``GSLAM_COST_CLUSTER``
+  blocks per cluster at most; timed at B5's three shapes;
+- ``csrc/brief.cu`` (B2): ``GSLAM_BRIEF_WARPS`` per block,
+  ``GSLAM_BRIEF_SPLIT`` warps per keypoint and ``GSLAM_BRIEF_KPW``
+  keypoints per warp; timed on ``track_forward``'s example image
+  (480 x 640) at K = 512 and at the loop run's K = 384.
 
 Every variant is built into its own library (one ``nvcc`` each, all
 started together; their register and shared-memory lines are printed),
-checked against the plain version (B1 and B4 bit for bit, B5 within
-``chip_smoke.assert_schur_close``), then timed by CUDA-graph replay
+checked against the plain version (B1, B2 and B4 bit for bit, B5
+within ``chip_smoke.assert_schur_close``, B6 within rtol 1e-5 and bit
+for bit against the default build), then timed by CUDA-graph replay
 (``chip_smoke.graph_ms``, the better of two).  The first variant of each
 list is the source's default; its time is split by kernel name with
-torch.profiler.  B3 is timed as built.  The last line is one JSON object
+torch.profiler.  B6 and B2 are one launch each, so their default is
+split by phase instead: builds with ``GSLAM_COST_PHASE`` or
+``GSLAM_BRIEF_PHASE`` set below its default stop after an earlier phase
+(the source's header says which), and the differences of their times
+are the phases' shares.  B3 is timed as built.  The last line is one JSON object
 with the card's name and power limit.
 """
 
@@ -41,8 +53,9 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from gslam_tpu_torch.models.graft import example_image  # noqa: E402
+from gslam_tpu_torch.ops import frontend  # noqa: E402
 from gslam_tpu_torch.ops.cuda import (  # noqa: E402
-    build, fastnms, matcher, schur,
+    brief, build, fastnms, matcher, schur,
 )
 from gslam_tpu_torch.ops.matching import hamming_top2_gated  # noqa: E402
 from gslam_tpu_torch.opt import ba  # noqa: E402
@@ -65,6 +78,16 @@ GATED_SHAPES = ((2048, 512), (768, 384), (2048, 2500))
 # (threads per block, points per group)
 SCHUR_VARIANTS = [(512, 8), (256, 8), (256, 4), (256, 16), (128, 8),
                   (512, 16)]
+# B6 (threads per block, points per block, most blocks per cluster)
+COST_VARIANTS = [(512, 64, 16), (1024, 128, 8), (1024, 128, 16),
+                 (256, 32, 16), (512, 64, 8), (256, 64, 16), (256, 32, 8)]
+COST_PHASES = (0, 1, 2)         # the default is 3
+# B2 (warps per block, warps per keypoint, keypoints per warp)
+BRIEF_VARIANTS = [(16, 8, 1), (8, 8, 1), (32, 8, 1), (16, 4, 1),
+                  (8, 4, 1), (4, 4, 1), (8, 2, 1), (4, 1, 1), (2, 1, 1),
+                  (16, 8, 2)]
+BRIEF_PHASES = (0, 1)           # the default is 2
+BRIEF_KS = (512, 384)
 
 
 def kernel_split(fn, calls: int = 20):
@@ -138,6 +161,18 @@ def tune(name, lib_fn, variants, to_flags, cases, check, call):
     return out
 
 
+def ba_cases():
+    """B5's and B6's cases: (problem as given, without pads) on the
+    local-BA problem and chip_smoke.SCHUR_EXTRA's."""
+    bench = cs.bench_problem()
+    cases = {"C8_P1024_O8": (bench, bench)}
+    for label, case in cs.SCHUR_EXTRA.items():
+        fields = cs.ba_case(**case, seed=1)
+        cases[label] = (cs.to_problem(fields, "cuda"), cs.to_problem(
+            cs.without_pad_indices(fields), "cuda"))
+    return cases
+
+
 def tune_fast():
     img = torch.as_tensor(example_image(cs.H, cs.W)[0], device="cuda")
     ds = cs.SyntheticDataset(**cs.SEQUENCE)
@@ -175,12 +210,7 @@ def tune_gated():
 
 def tune_schur():
     lam = torch.tensor(1e-3, device="cuda")
-    bench = cs.bench_problem()
-    cases = {"C8_P1024_O8": (bench, bench)}    # (as given, without pads)
-    for label, case in cs.SCHUR_EXTRA.items():
-        fields = cs.ba_case(**case, seed=1)
-        cases[label] = (cs.to_problem(fields, "cuda"), cs.to_problem(
-            cs.without_pad_indices(fields), "cuda"))
+    cases = ba_cases()
 
     def check(label, args):
         prob, plain = args
@@ -192,6 +222,64 @@ def tune_schur():
                            f"-DGSLAM_SCHUR_GROUP={v[1]}"),
                 cases, check,
                 lambda a: schur.schur_reduce_kernel(a[0], lam, 0.01))
+
+
+def phase_split(name, lib_fn, macro, phases, cases, call):
+    """The default build of ``name`` stopped after each earlier phase
+    (``-D{macro}=phase``): device ms per case, beside the default's."""
+    flags = [(f"-D{macro}={p}",) for p in phases]
+    build_variants(name, flags)
+    out = {}
+    for p, f in zip(phases, flags):
+        use_variant(name, lib_fn, f)
+        out[f"phase_{p}"] = {label: best_ms(lambda: call(args))
+                             for label, args in cases.items()}
+    use_variant(name, lib_fn, ())
+    out["default"] = {label: best_ms(lambda: call(args))
+                      for label, args in cases.items()}
+    print(f"{name} by phase (ms): {out}", flush=True)
+    return out
+
+
+def tune_cost():
+    cases = ba_cases()
+    first = {}
+
+    def check(label, args):
+        prob, plain = args
+        got = schur.ba_cost_kernel(prob, 0.01)
+        torch.testing.assert_close(got, ba.ba_cost(plain, 0.01), rtol=1e-5,
+                                   atol=0.0, msg=f"B6 variant ({label})")
+        if not torch.equal(first.setdefault(label, got), got):
+            raise AssertionError(f"B6 variant: other bits than the "
+                                 f"default build ({label})")
+
+    call = lambda a: schur.ba_cost_kernel(a[0], 0.01)   # noqa: E731
+    out = tune("schur", schur._lib, COST_VARIANTS,
+               lambda v: tuple(f"-DGSLAM_COST_{k}={x}" for k, x in zip(
+                   ("THREADS", "POINTS", "CLUSTER"), v)), cases, check, call)
+    out["phases"] = phase_split("schur", schur._lib, "GSLAM_COST_PHASE",
+                                COST_PHASES, cases, call)
+    return out
+
+
+def tune_brief():
+    img = torch.as_tensor(example_image(cs.H, cs.W)[0], device="cuda")
+    blur, uv, ca, sa, _ = cs.brief_inputs(img, max(BRIEF_KS))
+    cases = {f"K{k}": (blur, uv[:k], ca[:k], sa[:k]) for k in BRIEF_KS}
+
+    def check(label, args):
+        if not torch.equal(brief.brief(*args),
+                           frontend.brief_from_rotation(*args)):
+            raise AssertionError(f"B2 variant disagrees ({label})")
+
+    call = lambda a: brief.brief(*a)                     # noqa: E731
+    out = tune("brief", brief._lib, BRIEF_VARIANTS,
+               lambda v: tuple(f"-DGSLAM_BRIEF_{k}={x}" for k, x in zip(
+                   ("WARPS", "SPLIT", "KPW"), v)), cases, check, call)
+    out["phases"] = phase_split("brief", brief._lib, "GSLAM_BRIEF_PHASE",
+                                BRIEF_PHASES, cases, call)
+    return out
 
 
 def time_matcher():
@@ -209,7 +297,8 @@ def time_matcher():
 
 BASE_FLAGS = build.NVCC_FLAGS
 STEPS = {"b1": ("fast_nms_ms", tune_fast), "b4": ("gated_ms", tune_gated),
-         "b5": ("schur_ms", tune_schur), "b3": ("matcher_ms", time_matcher)}
+         "b5": ("schur_ms", tune_schur), "b6": ("cost_ms", tune_cost),
+         "b2": ("brief_ms", tune_brief), "b3": ("matcher_ms", time_matcher)}
 
 
 def main() -> int:

@@ -7,7 +7,9 @@ without one; run them on a machine with a card by
 (``--noconftest``: this file imports neither JAX nor the JAX package,
 so it runs where JAX is not installed).  Tolerances: FAST+NMS bit for
 bit (float32 arc sums of the qualifying starts in the same order), BRIEF
-bit for bit and the matchers exactly (integer arithmetic), as the
+bit for bit and the matchers exactly (integer arithmetic), the BA cost
+within rtol 1e-5 of its plain version and bit for bit its float32 model
+(``chip_smoke.cost_order``: the kernel's fixed summation order), as the
 kernels' headers state.  The CPU half of the contract (a CPU tensor takes the
 plain version) is in the frontend and matching test files.
 """
@@ -17,8 +19,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    assert_schur_close, ba_case, fast_case, matcher_case, to_problem,
-    without_pad_indices,
+    assert_schur_close, ba_case, cost_order, fast_case, matcher_case,
+    to_problem, without_pad_indices,
 )
 from gslam_tpu_torch.ops import frontend, matching
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
@@ -93,15 +95,19 @@ def test_fast_nms_kernel_unaligned_image(dev):
     assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
 
 
-@pytest.mark.parametrize("K", [1, 100, 512])
-def test_brief_kernel_bit_exact(dev, K):
+@pytest.mark.parametrize("H,W,K,margin", [
+    (120, 160, 1, 2), (120, 160, 100, 2), (120, 160, 512, 2),
+    *((480, 640, K, 40) for K in (1, 3, 383, 384, 512, 1000))])
+def test_brief_kernel_bit_exact(dev, H, W, K, margin):
+    """Bit for bit, with keypoints up to ``margin`` px past every border
+    (endpoints clamped), at 480 x 640 with K on and off the keypoints a
+    block takes."""
     rng = np.random.default_rng(2)
-    H, W = 120, 160
-    img = torch.as_tensor(blob_image(rng, H, W, n=40), device=dev)
+    img = torch.as_tensor(blob_image(rng, H, W, n=H * W // 480), device=dev)
     blur = frontend.gaussian_blur(img)
-    # keypoints anywhere, the border included (endpoints are clamped)
-    uv = torch.as_tensor(rng.uniform([-2, -2], [W + 1, H + 1], (K, 2))
-                         .astype(np.float32), device=dev)
+    uv = torch.as_tensor(rng.uniform([-margin, -margin],
+                                     [W + margin - 1, H + margin - 1],
+                                     (K, 2)).astype(np.float32), device=dev)
     ang = torch.as_tensor(rng.uniform(-np.pi, np.pi, K).astype(np.float32),
                           device=dev)
     ca, sa = torch.cos(ang), torch.sin(ang)
@@ -403,6 +409,78 @@ def test_schur_kernel_sparse_repeated_and_padded(dev, C, P, O, window, pads):
         assert torch.equal(x, y)
     torch.testing.assert_close(schur.ba_cost_kernel(prob, 0.01),
                                ba.ba_cost(plain, 0.01), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("O", [1, 8, 64])
+@pytest.mark.parametrize("P", [1, 255, 256, 257, 1024, 65537])
+def test_cost_kernel_sums_in_the_fixed_order(dev, P, O):
+    """B6 on and beside its 256-point partials and past 256 partials,
+    pad slots with the camera index -1 or C: within rtol 1e-5 of the
+    plain version (pads set to camera 0 there), bit for bit the float32
+    model of its order, one launch a call."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt import ba
+
+    fields = ba_case(8, P, O, seed=P + O, window=4, pads=True)
+    before = schur.cost_launches
+    got = schur.ba_cost_kernel(to_problem(fields, dev), 0.01)
+    plain = ba.ba_cost(to_problem(without_pad_indices(fields), dev), 0.01)
+    assert schur.cost_launches == before + 1
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+    want = cost_order(fields, 0.01)
+    assert got.cpu().numpy().view(np.uint32) == want.view(np.uint32)
+
+
+@pytest.mark.parametrize("P", [1024, 3000])
+def test_cost_kernel_same_bits_over_calls_and_graph_replays(dev, P):
+    """The same bits from two calls, from calls on other grids between
+    them, and from two replays of a CUDA graph holding two calls: one
+    cluster (P = 1024), and several, whose ticket starts every call
+    from 0 (P = 3000)."""
+    from gslam_tpu_torch.ops.cuda import schur
+
+    prob = to_problem(ba_case(8, P, 8, seed=3, window=4, pads=True), dev)
+    small = to_problem(ba_case(4, 1, 3, seed=4), dev)
+    first = schur.ba_cost_kernel(prob)
+    one = schur.ba_cost_kernel(small)
+    again = schur.ba_cost_kernel(prob)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        schur.ba_cost_kernel(prob)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o1 = schur.ba_cost_kernel(prob)
+        o2 = schur.ba_cost_kernel(prob)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays += [o1.clone(), o2.clone()]
+    assert torch.equal(schur.ba_cost_kernel(small), one)
+    for x in (again, *replays):
+        assert torch.equal(x, first)
+
+
+def test_cost_kernel_is_one_launch(dev):
+    """torch.profiler sees one kernel, cost_kernel, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gslam_tpu_torch.ops.cuda import schur
+
+    prob = to_problem(ba_case(8, 1024, 8, seed=5), dev)
+    schur.ba_cost_kernel(prob)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            schur.ba_cost_kernel(prob)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("cost_kernel" in n for n in names)
 
 
 def test_schur_scratch_stays_small(dev):
