@@ -143,8 +143,14 @@ LOOP_MIN_KEYFRAMES, LOOP_MIN_CLOSURES, LOOP_ATE_GATE = 100, 2, 1.5
 # sequence = half of lap 1), accepted within this distance of where the
 # corrected trajectory places that frame (the ring's diameter is 28 m)
 KIDNAP_FRAME, KIDNAP_TRIES, KIDNAP_TOL_M = 256, 5, 3.0
-# B7 at the top of the JAX package's contract (4681 nodes, 4096 words)
+# B7 at the top of the JAX package's contract (4681 nodes, 4096 words),
+# at a DBoW-sized tree (1.1 M nodes) of which the kernel reads only the
+# top levels whole, and at the verification's landmark slab
+# (models/loop_closure.py: verify's max_points)
 VOC_BIG = dict(k=8, L=4)
+VOC_DEEP = dict(k=10, L=6)
+VERIFY_SLAB = 512
+VOCAB_TIMED = ("loop", "slab", "big", "deep")   # cases of vocab_cases
 
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1292,21 +1298,44 @@ def descent_case(voc, N, seed, p_invalid=0.0):
             torch.as_tensor(valid, device=DEVICE))
 
 
-def phase_check_vocab():
-    """B7 against its plain version, word for word, at the loop path's
-    shape and at the top of the JAX package's table contract."""
+def deep_tree(k, L, seed):
+    """A complete tree of random centres on the card whose first two
+    children of every node are equal (tied distances at every level)."""
+    rng = np.random.default_rng(seed)
+    nodes = random_words(rng, vocab._level_offset(k, L + 1))
+    for l in range(1, L + 1):
+        lo, hi = vocab._level_offset(k, l), vocab._level_offset(k, l + 1)
+        nodes[lo + 1:hi:k] = nodes[lo:hi:k]
+    return vocab.vocabulary_from_numpy(nodes, np.ones(k ** L, np.float32),
+                                       k, L, device=DEVICE)
+
+
+def vocab_cases():
+    """B7's cases: label -> (tree, N, share of invalid rows).  A
+    keyframe's descriptors and the verification's slab on the loop
+    path's tree shape, the top of the JAX package's table contract (and
+    N off any block multiple), and the deep tree."""
     rng = np.random.default_rng(11)
-    t0 = time.perf_counter()
     voc_loop = vocab.train_vocabulary(
         random_words(rng, 4000), k=LOOP_VOC["k"], L=LOOP_VOC["L"], seed=0,
         device=DEVICE)
     voc_big = vocab.train_vocabulary(random_words(rng, 40000), seed=0,
                                      device=DEVICE, **VOC_BIG)
-    log(f"vocabularies trained in {time.perf_counter() - t0:.1f} s: "
-        f"{voc_loop.node_desc.shape[0]} and {voc_big.node_desc.shape[0]} "
-        "nodes")
-    cases = {"loop": (voc_loop, LOOP_CFG["max_kps"], 0.1),
-             "big": (voc_big, 512, 0.0), "big_odd": (voc_big, 509, 0.2)}
+    voc_deep = deep_tree(**VOC_DEEP, seed=12)
+    return {"loop": (voc_loop, LOOP_CFG["max_kps"], 0.1),
+            "slab": (voc_loop, VERIFY_SLAB, 0.1),
+            "big": (voc_big, 512, 0.0), "big_odd": (voc_big, 509, 0.2),
+            "deep": (voc_deep, LOOP_CFG["max_kps"], 0.1)}
+
+
+def phase_check_vocab():
+    """B7 against its plain version, word for word, at every case of
+    vocab_cases."""
+    t0 = time.perf_counter()
+    cases = vocab_cases()
+    log(f"vocabularies made in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{label} {voc.node_desc.shape[0]} nodes"
+                    for label, (voc, _, _) in cases.items()))
     rec = {}
     for i, (label, (voc, N, p_inv)) in enumerate(cases.items()):
         desc, valid = descent_case(voc, N, 20 + i, p_inv)
@@ -1324,7 +1353,7 @@ def phase_check_vocab():
             raise AssertionError(f"B7 disagrees with its plain version "
                                  f"({label})")
         rec[label] = dict(max_abs_err=float(err), voc=voc,
-                          args=(desc, valid))
+                          args=(desc, valid), words=w_p)
     return rec
 
 
@@ -1454,21 +1483,23 @@ def phase_loop():
         reloc_dist_m=dist, reloc_b7_launches=b7_reloc)
 
 
-def descent_work(voc, N):
-    """(bytes, float operations, Hamming steps) of one descent:
-    descriptors and validity in, words out, the nodes touched (at most
-    k L per descriptor, at most the table); 8 steps (xor, popc, add) per
-    descriptor, level and child."""
-    touched = min(voc.node_desc.shape[0], N * voc.k * voc.L)
-    return N * 32 + touched * 32 + N * 5, 0, N * voc.k * voc.L * 8
+def descent_work(voc, words):
+    """(bytes, float operations, Hamming steps) of the descent that gave
+    ``words``: descriptors and validity in, words out, and the children
+    of every node the valid rows passed through, read once each; 8 steps
+    (xor, popc, add) per valid row, level and child.  Invalid rows
+    descend no level."""
+    k, L, N = voc.k, voc.L, words.shape[0]
+    w = words[words >= 0].long()
+    parents = sum(len(torch.unique(w // k ** (L - l))) for l in range(L))
+    return N * 37 + parents * k * 32, 0, len(w) * k * L * 8
 
 
 def phase_vocab_kernel_times(rec_v, launched, n_keyframes):
-    """B7's device time beside its plain version at both shapes: (the
-    kernels-line record, at the loop path's shape; the record at the
-    larger tree)."""
-    out = []
-    for label in ("loop", "big"):
+    """B7's device time beside its plain version at each timed case:
+    {label: kernels-line record}; "loop" is the kernels line's."""
+    out = {}
+    for label in VOCAB_TIMED:
         voc = rec_v[label]["voc"]
         desc, valid = rec_v[label]["args"]
         calls = {"bow_descent": (
@@ -1478,8 +1509,8 @@ def phase_vocab_kernel_times(rec_v, launched, n_keyframes):
                                            voc.k, voc.L))}
         log(f"B7 at N={desc.shape[0]}, k={voc.k}, L={voc.L} "
             f"({voc.node_desc.shape[0]} nodes):")
-        out += time_kernels(
-            calls, {"bow_descent": descent_work(voc, desc.shape[0])},
+        out[label], = time_kernels(
+            calls, {"bow_descent": descent_work(voc, rec_v[label]["words"])},
             {"bow_descent": rec_v[label]}, launched,
             {"bow_descent": f"{launched['bow_descent'] / n_keyframes:.2f} "
              "per keyframe"})
@@ -1625,9 +1656,8 @@ def main() -> int:
     kern = phase_kernel_times(rec, launched)
     kern += phase_slam_kernel_times(rec, launched, SLAM_FRAMES,
                                     slam_checks["local_ba_runs"])
-    b7, b7_big = phase_vocab_kernel_times(rec_v, launched,
-                                          loop_run["keyframes"])
-    kern.append(b7)
+    b7 = phase_vocab_kernel_times(rec_v, launched, loop_run["keyframes"])
+    kern.append(b7["loop"])
     extra = phase_extra_kernel_times(rec)
     t = phase("kernel times", t)
     log(json.dumps({"probe": probe, "kernels_at_extra_shapes": extra}))
@@ -1645,8 +1675,9 @@ def main() -> int:
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],
                     **loop_run, "launches": launched_loop,
-                    "bow_descent_k8_L4": {k: b7_big[k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by")}}))
+                    "bow_descent_at": {label: {k: r[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by")}
+                        for label, r in b7.items() if label != "loop"}}))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card_name_and_power_limit())
     log(json.dumps({"kernels": kern}))

@@ -23,8 +23,10 @@ launches = 0     # kernel launches since the last reset
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library("brief")
+def _lib(flags: tuple = ()) -> ctypes.CDLL:
+    """The brief library, built with ``flags`` (a tuning variant's
+    ``-D`` macros) added."""
+    lib = build.library("brief", flags)
     fn = lib.gslam_brief
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _lib_path(name: str, flags: Tuple[str, ...] = None) -> Path:
@@ -89,14 +89,16 @@ def build_all(names=SOURCES, flags: Tuple[str, ...] = None
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def library(name: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with
+    ``flags`` (``-D`` macros of a tuning variant) added to
+    ``NVCC_FLAGS``."""
+    lib = _LIBS.get((name, flags))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, NVCC_FLAGS + flags)
         if not path.exists():
-            build_all((name,))
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+            build_all((name,), NVCC_FLAGS + flags)
+        lib = _LIBS[name, flags] = ctypes.CDLL(str(path))
     return lib
 
 

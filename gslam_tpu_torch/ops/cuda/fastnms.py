@@ -20,8 +20,10 @@ launches = 0     # kernel launches since the last reset
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library("fastnms")
+def _lib(flags: tuple = ()) -> ctypes.CDLL:
+    """The fastnms library, built with ``flags`` (a tuning variant's
+    ``-D`` macros) added."""
+    lib = build.library("fastnms", flags)
     fn = lib.gslam_fast_nms
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,

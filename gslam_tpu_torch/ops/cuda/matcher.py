@@ -42,8 +42,10 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _gated_lib() -> ctypes.CDLL:
-    lib = build.library("gated")
+def _gated_lib(flags: tuple = ()) -> ctypes.CDLL:
+    """The gated library, built with ``flags`` (a tuning variant's
+    ``-D`` macros) added."""
+    lib = build.library("gated", flags)
     fn = lib.gslam_match_gated
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [

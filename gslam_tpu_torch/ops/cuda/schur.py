@@ -32,8 +32,10 @@ _F = ctypes.c_float
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library("schur")
+def _lib(flags: tuple = ()) -> ctypes.CDLL:
+    """The schur library, built with ``flags`` (a tuning variant's
+    ``-D`` macros) added."""
+    lib = build.library("schur", flags)
     lib.gslam_schur_scratch.restype = ctypes.c_longlong
     lib.gslam_schur_scratch.argtypes = [_I, _I]
     lib.gslam_schur.restype = _I

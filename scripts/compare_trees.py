@@ -18,9 +18,12 @@ tree's kernels and prints one JSON line:
   O = 8), of the B6 cost on that problem and on ``chip_smoke.SCHUR_EXTRA``'s
   (C = 32, P = 1024 and the loop run's C = 4, P = 384), and of B2 BRIEF
   on ``track_forward``'s frame at K = 512 and at its first 384
-  keypoints;
+  keypoints, and of the B7 descent at N = 384 and 512 on a k = 6, L = 2
+  tree and at N = 512 on a k = 8, L = 4 tree (``chip_smoke.vocab_cases``'
+  trees, made here from the same seeds);
 - B6's output at those three shapes as float32 hex, and a SHA-256 of
-  B2's words at K = 512 (equal fields show equal outputs);
+  B2's words at K = 512 and of B7's words at each of its shapes (equal
+  fields show equal outputs);
 - device ms of ``track_forward``'s stages (``chip_smoke.phase_stages``;
   ``match`` is the matcher call with its PyTorch decisions);
 - a warm 64-frame ``KeyframeSLAM`` run: ms/frame, the timer sections in
@@ -46,10 +49,11 @@ def worker() -> int:
 
     import chip_smoke as cs
     from gslam_tpu_torch.models.graft import example_inputs
-    from gslam_tpu_torch.ops import frontend
+    from gslam_tpu_torch.ops import frontend, vocab
     from gslam_tpu_torch.ops.cuda import (
         brief, build, fastnms, matcher, schur,
     )
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
     from gslam_tpu_torch.ops.matching import gate_squared
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,6 +104,24 @@ def worker() -> int:
             lambda: schur.ba_cost_kernel(p, 0.01))
         bits = schur.ba_cost_kernel(p, 0.01).cpu().numpy().view(np.uint32)
         out["ba_cost_hex"][label] = f"0x{int(bits):08x}"
+    rng = np.random.default_rng(11)
+    voc_loop = vocab.train_vocabulary(cs.random_words(rng, 4000), k=6, L=2,
+                                      seed=0, device="cuda")
+    voc_big = vocab.train_vocabulary(cs.random_words(rng, 40000), k=8,
+                                     L=4, seed=0, device="cuda")
+    out["bow_descent_ms"], out["bow_descent_sha256"] = {}, {}
+    for seed, (label, voc, N) in enumerate((
+            ("N384_k6_L2", voc_loop, 384), ("N512_k6_L2", voc_loop, 512),
+            ("N512_k8_L4", voc_big, 512)), start=20):
+        d, v = cs.descent_case(voc, N, seed, 0.1)
+
+        def b7(voc=voc, d=d, v=v):
+            return vocab_k.transform_words_kernel(voc.node_desc, d, v,
+                                                  voc.k, voc.L)
+
+        out["bow_descent_ms"][label] = cs.graph_ms(b7)
+        out["bow_descent_sha256"][label] = hashlib.sha256(
+            b7().cpu().numpy().tobytes()).hexdigest()
     cs.run_slam(camera, frames)                      # warm-up
     slam, secs = cs.run_slam(camera, frames)
     n = len(frames)
@@ -151,7 +173,10 @@ def main() -> int:
               f"{res['schur_ms']:.6f} ms, ba_cost {res['ba_cost_ms']} ms "
               f"{res['ba_cost_hex']}, brief {res['brief_ms']:.6f} ms "
               f"(K=384 {res['brief_K384_ms']:.6f}) words "
-              f"{res['brief_sha256'][:16]}, match stage "
+              f"{res['brief_sha256'][:16]}, bow_descent "
+              f"{res['bow_descent_ms']} ms words "
+              f"{ {k: v[:16] for k, v in res['bow_descent_sha256'].items()} }"
+              f", match stage "
               f"{res['stages_ms']['match']:.4f} ms, SLAM "
               f"{res['slam_ms_per_frame']:.3f} ms/frame, local_ba "
               f"{sp.get('local_ba', float('nan')):.4f} ms/frame, ATE "

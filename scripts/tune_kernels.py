@@ -1,9 +1,9 @@
 """Time hand-written kernels of gslam_tpu_torch over their tuning
 constants on one NVIDIA card.
 
-    python3 scripts/tune_kernels.py [b1] [b4] [b5] [b6] [b2] [b3]
+    python3 scripts/tune_kernels.py [b1] [b4] [b5] [b6] [b2] [b7] [b3]
 
-(all six when none is named).  A source takes its tuning constants as
+(all seven when none is named).  A source takes its tuning constants as
 ``-D`` macros at build time, the chosen values being its defaults:
 
 - ``csrc/fastnms.cu`` (B1): the output tile ``GSLAM_FAST_TW`` x
@@ -25,23 +25,31 @@ constants on one NVIDIA card.
 - ``csrc/brief.cu`` (B2): ``GSLAM_BRIEF_WARPS`` per block,
   ``GSLAM_BRIEF_SPLIT`` warps per keypoint and ``GSLAM_BRIEF_KPW``
   keypoints per warp; timed on ``track_forward``'s example image
-  (480 x 640) at K = 512 and at the loop run's K = 384.
+  (480 x 640) at K = 512 and at the loop run's K = 384;
+- ``csrc/vocab.cu`` (B7): ``GSLAM_VOCAB_DPB`` descriptors (warps) per
+  block and ``GSLAM_VOCAB_TOP_ROWS``, the most table rows a warp holds
+  (the whole levels that fit are read before the descent); timed at
+  ``chip_smoke.vocab_cases``' shapes (N = 384 and 512 at k = 6, L = 2,
+  N = 512 at k = 8, L = 4, N = 384 at k = 10, L = 6).
 
 Every variant is built into its own library (one ``nvcc`` each, all
 started together; their register and shared-memory lines are printed),
-checked against the plain version (B1, B2 and B4 bit for bit, B5
+checked against the plain version (B1, B2, B4 and B7 bit for bit, B5
 within ``chip_smoke.assert_schur_close``, B6 within rtol 1e-5 and bit
 for bit against the default build), then timed by CUDA-graph replay
 (``chip_smoke.graph_ms``, the better of two).  The first variant of each
 list is the source's default; its time is split by kernel name with
-torch.profiler.  B6 and B2 are one launch each, so their default is
-split by phase instead: builds with ``GSLAM_COST_PHASE`` or
-``GSLAM_BRIEF_PHASE`` set below its default stop after an earlier phase
-(the source's header says which), and the differences of their times
-are the phases' shares.  B3 is timed as built.  The last line is one JSON object
-with the card's name and power limit.
+torch.profiler.  B6, B2 and B7 are one launch each, so their default is
+split by phase instead: builds with ``GSLAM_COST_PHASE``,
+``GSLAM_BRIEF_PHASE`` or ``GSLAM_VOCAB_PHASE`` set below its default
+stop after an earlier phase (the source's header says which), and the
+differences of their times are the phases' shares.  B3 is timed as
+built.  The last line is one JSON object with the card's name and power
+limit.
 """
 
+import contextlib
+import functools
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -53,10 +61,11 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from gslam_tpu_torch.models.graft import example_image  # noqa: E402
-from gslam_tpu_torch.ops import frontend  # noqa: E402
+from gslam_tpu_torch.ops import frontend, vocab  # noqa: E402
 from gslam_tpu_torch.ops.cuda import (  # noqa: E402
     brief, build, fastnms, matcher, schur,
 )
+from gslam_tpu_torch.ops.cuda import vocab as vocab_k  # noqa: E402
 from gslam_tpu_torch.ops.matching import hamming_top2_gated  # noqa: E402
 from gslam_tpu_torch.opt import ba  # noqa: E402
 
@@ -88,6 +97,10 @@ BRIEF_VARIANTS = [(16, 8, 1), (8, 8, 1), (32, 8, 1), (16, 4, 1),
                   (16, 8, 2)]
 BRIEF_PHASES = (0, 1)           # the default is 2
 BRIEF_KS = (512, 384)
+# B7 descriptors (warps) per block, table rows held
+VOCAB_VARIANTS = [(4, 64), (4, 128), (4, 32), (4, 0), (2, 64), (8, 64)]
+VOCAB_PHASES = (0, 1, 2, 3, 4)  # the default runs every level
+VOCAB_CASES = ("loop", "slab", "big", "deep")
 
 
 def kernel_split(fn, calls: int = 20):
@@ -128,36 +141,41 @@ def build_variants(name, variants):
             print(line, flush=True)
 
 
-def use_variant(name, lib_fn, flags):
-    """Make the wrapper whose cached loader is ``lib_fn`` load the
-    library of ``name`` built with ``flags`` added."""
-    build.NVCC_FLAGS = BASE_FLAGS + flags
-    build._LIBS.pop(name, None)
-    lib_fn.cache_clear()
+@contextlib.contextmanager
+def variant(lib, flags):
+    """Within the block, the wrapper module ``lib[0]`` loads its library
+    through its loader ``lib[1]`` built with ``flags`` added."""
+    module, loader = lib
+    default = getattr(module, loader)
+    setattr(module, loader, functools.partial(default, flags))
+    try:
+        yield
+    finally:
+        setattr(module, loader, default)
 
 
 def best_ms(fn):
     return min(cs.graph_ms(fn) for _ in range(2))
 
 
-def tune(name, lib_fn, variants, to_flags, cases, check, call):
-    """Each variant of ``name``: checked on every case, then timed;
-    the first (default) variant split by kernel name."""
+def tune(name, lib, variants, to_flags, cases, check, call):
+    """Each variant of ``name`` (its wrapper's ``lib``, as ``variant``
+    takes it): checked on every case, then timed; the first (default)
+    variant split by kernel name."""
     flags = [to_flags(v) for v in variants]
     build_variants(name, flags)
     out = {}
     for v, f in zip(variants, flags):
-        use_variant(name, lib_fn, f)
         row = {}
-        for label, args in cases.items():
-            check(label, args)
-            row[label] = best_ms(lambda: call(args))
-            if v == variants[0]:
-                print(f"  {label} kernels (us):",
-                      kernel_split(lambda: call(args)), flush=True)
+        with variant(lib, f):
+            for label, args in cases.items():
+                check(label, args)
+                row[label] = best_ms(lambda: call(args))
+                if v == variants[0]:
+                    print(f"  {label} kernels (us):",
+                          kernel_split(lambda: call(args)), flush=True)
         out["_".join(map(str, v))] = row
         print(f"{name} {v}: {row}", flush=True)
-    use_variant(name, lib_fn, ())
     return out
 
 
@@ -186,7 +204,7 @@ def tune_fast():
         if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
             raise AssertionError(f"B1 variant disagrees ({label})")
 
-    return tune("fastnms", fastnms._lib, FAST_VARIANTS,
+    return tune("fastnms", (fastnms, "_lib"), FAST_VARIANTS,
                 lambda v: tuple(f"-DGSLAM_FAST_{k}={x}" for k, x in zip(
                     ("TW", "TH", "THREADS"), v)),
                 cases, check, lambda a: fastnms.fast_nms_raw(*a))
@@ -202,7 +220,7 @@ def tune_gated():
         if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(k, p)):
             raise AssertionError(f"B4 variant disagrees ({label})")
 
-    return tune("gated", matcher._gated_lib, GATED_VARIANTS,
+    return tune("gated", (matcher, "_gated_lib"), GATED_VARIANTS,
                 lambda v: tuple(f"-DGSLAM_GATED_{k}={x}" for k, x in zip(
                     ("WARPS", "ROWS", "UNROLL", "TILE"), v)),
                 cases, check, lambda a: matcher.gated_top2_kernel(*a))
@@ -217,24 +235,23 @@ def tune_schur():
         cs.assert_schur_close(schur.schur_reduce_kernel(prob, lam, 0.01),
                               ba.schur_reduce(plain, lam, 0.01), label)
 
-    return tune("schur", schur._lib, SCHUR_VARIANTS,
+    return tune("schur", (schur, "_lib"), SCHUR_VARIANTS,
                 lambda v: (f"-DGSLAM_SCHUR_THREADS={v[0]}",
                            f"-DGSLAM_SCHUR_GROUP={v[1]}"),
                 cases, check,
                 lambda a: schur.schur_reduce_kernel(a[0], lam, 0.01))
 
 
-def phase_split(name, lib_fn, macro, phases, cases, call):
+def phase_split(name, lib, macro, phases, cases, call):
     """The default build of ``name`` stopped after each earlier phase
     (``-D{macro}=phase``): device ms per case, beside the default's."""
     flags = [(f"-D{macro}={p}",) for p in phases]
     build_variants(name, flags)
     out = {}
     for p, f in zip(phases, flags):
-        use_variant(name, lib_fn, f)
-        out[f"phase_{p}"] = {label: best_ms(lambda: call(args))
-                             for label, args in cases.items()}
-    use_variant(name, lib_fn, ())
+        with variant(lib, f):
+            out[f"phase_{p}"] = {label: best_ms(lambda: call(args))
+                                 for label, args in cases.items()}
     out["default"] = {label: best_ms(lambda: call(args))
                       for label, args in cases.items()}
     print(f"{name} by phase (ms): {out}", flush=True)
@@ -255,10 +272,11 @@ def tune_cost():
                                  f"default build ({label})")
 
     call = lambda a: schur.ba_cost_kernel(a[0], 0.01)   # noqa: E731
-    out = tune("schur", schur._lib, COST_VARIANTS,
+    out = tune("schur", (schur, "_lib"), COST_VARIANTS,
                lambda v: tuple(f"-DGSLAM_COST_{k}={x}" for k, x in zip(
                    ("THREADS", "POINTS", "CLUSTER"), v)), cases, check, call)
-    out["phases"] = phase_split("schur", schur._lib, "GSLAM_COST_PHASE",
+    out["phases"] = phase_split("schur", (schur, "_lib"),
+                                "GSLAM_COST_PHASE",
                                 COST_PHASES, cases, call)
     return out
 
@@ -274,11 +292,43 @@ def tune_brief():
             raise AssertionError(f"B2 variant disagrees ({label})")
 
     call = lambda a: brief.brief(*a)                     # noqa: E731
-    out = tune("brief", brief._lib, BRIEF_VARIANTS,
+    out = tune("brief", (brief, "_lib"), BRIEF_VARIANTS,
                lambda v: tuple(f"-DGSLAM_BRIEF_{k}={x}" for k, x in zip(
                    ("WARPS", "SPLIT", "KPW"), v)), cases, check, call)
-    out["phases"] = phase_split("brief", brief._lib, "GSLAM_BRIEF_PHASE",
-                                BRIEF_PHASES, cases, call)
+    out["phases"] = phase_split("brief", (brief, "_lib"),
+                                "GSLAM_BRIEF_PHASE", BRIEF_PHASES, cases,
+                                call)
+    return out
+
+
+def tune_vocab():
+    all_cases = cs.vocab_cases()
+    cases = {}
+    for i, label in enumerate(VOCAB_CASES):
+        voc, N, p_inv = all_cases[label]
+        cases[f"{label}_N{N}_k{voc.k}_L{voc.L}"] = (
+            voc, *cs.descent_case(voc, N, 20 + i, p_inv))
+
+    def check(label, args):
+        voc, d, v = args
+        if not torch.equal(
+                vocab_k.transform_words_kernel(voc.node_desc, d, v, voc.k,
+                                               voc.L),
+                vocab._transform_words(voc.node_desc, d, v, voc.k, voc.L)):
+            raise AssertionError(f"B7 variant disagrees ({label})")
+
+    def call(args):
+        voc, d, v = args
+        return vocab_k.transform_words_kernel(voc.node_desc, d, v, voc.k,
+                                              voc.L)
+
+    out = tune("vocab", (vocab_k, "_lib"), VOCAB_VARIANTS,
+               lambda v: (f"-DGSLAM_VOCAB_DPB={v[0]}",
+                          f"-DGSLAM_VOCAB_TOP_ROWS={v[1]}"),
+               cases, check, call)
+    out["phases"] = phase_split("vocab", (vocab_k, "_lib"),
+                                "GSLAM_VOCAB_PHASE", VOCAB_PHASES, cases,
+                                call)
     return out
 
 
@@ -295,10 +345,10 @@ def time_matcher():
     return out
 
 
-BASE_FLAGS = build.NVCC_FLAGS
 STEPS = {"b1": ("fast_nms_ms", tune_fast), "b4": ("gated_ms", tune_gated),
          "b5": ("schur_ms", tune_schur), "b6": ("cost_ms", tune_cost),
-         "b2": ("brief_ms", tune_brief), "b3": ("matcher_ms", time_matcher)}
+         "b2": ("brief_ms", tune_brief), "b7": ("vocab_ms", tune_vocab),
+         "b3": ("matcher_ms", time_matcher)}
 
 
 def main() -> int:

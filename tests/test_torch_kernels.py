@@ -14,6 +14,8 @@ kernels' headers state.  The CPU half of the contract (a CPU tensor takes the
 plain version) is in the frontend and matching test files.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -534,10 +536,9 @@ def random_tree(rng, k, L, dev):
     return torch.as_tensor(nodes, device=dev)
 
 
-@pytest.mark.parametrize("k,L,N", [(3, 3, 173), (6, 2, 384), (8, 4, 513),
-                                   (10, 2, 1), (40, 2, 257)])
-def test_vocab_kernel_equals_plain(dev, k, L, N):
-    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+def check_descent(vocab_k, dev, k, L, N):
+    """B7 on a random tree with ties against its plain version, word for
+    word, and the same words again."""
     from gslam_tpu_torch.ops.vocab import _level_offset, _transform_words
 
     rng = np.random.default_rng(k * 100 + L)
@@ -560,6 +561,48 @@ def test_vocab_kernel_equals_plain(dev, k, L, N):
     assert int(w_k.max()) < k ** L
     again = vocab_k.transform_words_kernel(nodes, d, v, k, L)
     assert torch.equal(again, w_k)
+
+
+# (k, L, N): trees whose top the kernel holds whole, in part or not at all
+# (at most GSLAM_VOCAB_TOP_ROWS = 64 rows below the root, whole levels):
+# all of k = 3, L = 3 (39 rows), k = 6, L = 2 (42) and k = 64, L = 1 (64,
+# the cap); levels 1-5 of k = 2, L = 7 (62) and of k = 2, L = 6; levels
+# 1-2 of k = 4, L = 3 (20); level 1 of k = 8, L = 4, k = 10, L = 2 and
+# L = 6, k = 20 and k = 40 at L = 2; none of k = 65 and k = 200 at L = 1
+VOCAB_CASES = [(3, 3, 173), (6, 2, 384), (8, 4, 513), (10, 2, 1),
+               (40, 2, 257), (6, 2, 512), (10, 6, 384), (2, 7, 65),
+               (200, 1, 100), (20, 2, 300), (64, 1, 64), (2, 6, 130),
+               (4, 3, 77), (65, 1, 33)]
+
+
+@pytest.mark.parametrize("k,L,N", VOCAB_CASES)
+def test_vocab_kernel_equals_plain(dev, k, L, N):
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+
+    check_descent(vocab_k, dev, k, L, N)
+
+
+@pytest.fixture(params=[(1, 64), (2, 64), (8, 64), (16, 64), (32, 64),
+                        (4, 0), (4, 32), (4, 128)],
+                ids=lambda v: f"dpb{v[0]}-rows{v[1]}")
+def vocab_variant(dev, request, monkeypatch):
+    """The B7 wrapper on a build with another count of descriptors per
+    block or of table rows held (every variant scripts/tune_kernels.py
+    b7 tries, and more)."""
+    from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+
+    dpb, rows = request.param
+    monkeypatch.setattr(vocab_k, "_lib", functools.partial(
+        vocab_k._lib, (f"-DGSLAM_VOCAB_DPB={dpb}",
+                       f"-DGSLAM_VOCAB_TOP_ROWS={rows}")))
+    return vocab_k
+
+
+@pytest.mark.parametrize("k,L,N", [
+    (6, 2, 384), (8, 4, 513), (10, 2, 1), (40, 2, 257), (3, 3, 173),
+    (2, 7, 65), (200, 1, 100)])
+def test_vocab_kernel_variants_equal_plain(vocab_variant, dev, k, L, N):
+    check_descent(vocab_variant, dev, k, L, N)
 
 
 def test_transform_words_routes_by_tree_layout(dev):
@@ -609,3 +652,6 @@ def test_vocab_wrapper_rejects_bad_inputs(dev):
         vocab_k.transform_words_kernel(nodes, d[:0], v[:0], 4, 2)
     with pytest.raises(ValueError):
         vocab_k.transform_words_kernel(nodes, d, v, 1, 2)
+    shifted = torch.zeros(7 * 8 + 1, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        vocab_k.transform_words_kernel(nodes, shifted.view(7, 8), v, 4, 2)

@@ -3,7 +3,8 @@ package's (gslam_tpu.ops.vocab), same numpy inputs on both sides.
 
 * word ids of the plain descent (the plain version of the B7 kernel)
   equal ``_transform_words`` AND the Pallas kernel in interpret mode,
-  exactly; general-tree words equal on a pruned tree;
+  exactly, and ``_transform_words`` past the Pallas table cap;
+  general-tree words equal on a pruned tree;
 * ``train_vocabulary`` with one seed gives the identical tree;
 * dense and sparse BoW vectors and the three scores agree to 1e-6
   (float32 sums taken in another order);
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from gslam_tpu.ops import vocab as JV
-from gslam_tpu.ops.pallas.vocab import transform_words_pallas
+from gslam_tpu.ops.pallas.vocab import MAX_NODES, transform_words_pallas
 from gslam_tpu_torch import convert
 from gslam_tpu_torch.ops import vocab as TV
 from gslam_tpu_torch.ops.cuda import vocab as kernel
@@ -113,6 +114,33 @@ def test_words_equal_reference_and_pallas_interpret(k, L):
                   TV.transform_words(voc_t, q_t, v_t)):
         np.testing.assert_array_equal(words.numpy(), gold)
     assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("k,L", [(10, 5), (20, 3), (200, 2)])
+def test_deep_tree_words_equal_reference(k, L):
+    """Trees past the Pallas kernel's 8192-node cap (111,111, 8,421 and
+    40,201 nodes), of which the B7 kernel holds some top levels, one or
+    none: the first two children of every node are equal, so every
+    level holds ties; a third of the queries are node centres."""
+    rng = np.random.default_rng(17)
+    n = JV._level_offset(k, L + 1)
+    nodes = rand_desc(rng, n)
+    for l in range(1, L + 1):
+        lo, hi = JV._level_offset(k, l), JV._level_offset(k, l + 1)
+        nodes[lo + 1:hi:k] = nodes[lo:hi:k]
+    q = rand_desc(rng, 300)
+    q[:100] = nodes[rng.integers(1, n, 100)]
+    valid = rng.random(300) < 0.9
+    assert n > MAX_NODES
+    gold = np.asarray(JV._transform_words(
+        jnp.asarray(nodes), jnp.asarray(q), jnp.asarray(valid), k, L))
+    nodes_t = convert.desc_from_numpy(nodes, "cpu")
+    q_t, v_t = convert.desc_from_numpy(q, "cpu"), torch.tensor(valid)
+    for words in (TV._transform_words(nodes_t, q_t, v_t, k, L),
+                  kernel.transform_words_kernel(nodes_t, q_t, v_t, k, L)):
+        assert words.dtype == torch.int32
+        np.testing.assert_array_equal(words.numpy(), gold)
+    assert (gold[~valid] == -1).all() and len(np.unique(gold)) > 200
 
 
 def test_general_tree_words_equal():
