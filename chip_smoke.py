@@ -56,7 +56,35 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
    and at k = 8, L = 4 (4681 nodes; N = 512, and an odd N with invalid
    rows), on vocabularies trained here from seeded random descriptors;
-7. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
+7. batched dispatch: drive ``KeyframeSLAM.track_batch`` over all 192
+   frames of that sequence with ``dispatch_batch`` 8 (the reference's
+   full-system cell, bench.py:136-151), its K-frame body replayed as one
+   CUDA graph; launch counters around the run (the graph's captured
+   launches times its replays): B1, B2, B4, B5 and B6 launched, 192
+   finite poses, >= 90% of frames tracked, >= 3 keyframes, at least one
+   dispatch that took every frame before its K-th (kf_max_gap = K = 8,
+   so the K-th frame of a dispatch after a keyframe always needs one),
+   and the ATE within ``max(0.05, 2 ref + 0.01)``
+   of the JAX package's batched run; a second run repeats the ATE bit
+   for bit; the graph's capture time, node count and memory pool are
+   printed.  Then the graph against the same body run eagerly on one
+   batch of 8 frames with the same uniforms, every output bit for bit;
+   then sequential ``track`` against ``track_batch`` over the 192 frames
+   in turns (sequential, batched, batched, sequential: ms/frame,
+   frames/s, split by timer section) and the device busy share of each
+   over 24 warm frames;
+8. monocular: ``KeyframeSLAM`` over 48 depth-free frames of the ``line``
+   motion at 480 x 640 over 3000 untextured points (same configuration,
+   one frame a call) with the JAX package's RANSAC draws of its
+   reference run replayed (``tests/data/mono_draws.npz``), launch
+   counters around it: the two-view bootstrap, >= 3 keyframes, B1, B2,
+   B4, B5 and B6 launched, no fewer tracked frames than the JAX
+   package's run less 5 and the ATE after scale alignment within
+   ``max(0.05, 2 ref + 0.01)`` of its; then, printed, the same frames
+   with the system's own draws and the textured 1200-point scene of the
+   64-frame cell (a mono run's outcome turns on its draws, there in both
+   packages);
+9. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
    of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
    frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
    6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
@@ -67,9 +95,9 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
    feed frames from the far side of the ring and require BoW
    relocalization to bring the pose back through B7;
-8. print the slices' JSON lines (the probes and the extra shapes'
-   times among them), the ``kernels`` JSON line, then the device JSON
-   as the last line.
+10. print the slices' JSON lines (the probes and the extra shapes'
+    times among them), the ``kernels`` JSON line, then the device JSON
+    as the last line.
 
 Needs a CUDA card and ``nvcc``; without a card it exits non-zero before
 printing any result.
@@ -78,12 +106,14 @@ printing any result.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import glob
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,7 +126,9 @@ from gslam_tpu_torch.estimation.ransac import run_ransac
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
-from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
+from gslam_tpu_torch.models.keyframe_slam import (
+    BatchGraph, KeyframeSLAM, SLAMConfig, tensor_leaves,
+)
 from gslam_tpu_torch.ops import frontend, vocab
 from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher, schur
 from gslam_tpu_torch.ops.cuda import vocab as vocab_k
@@ -127,6 +159,39 @@ SLAM_CFG = dict(max_kps=512, fast_threshold=0.08, local_map_size=2048,
 # figure, not a speed figure.  Gate of tests/test_slam_e2e.py:146.
 REF_ATE = 0.0869997888803482
 ATE_GATE = max(0.05, 2.0 * REF_ATE + 0.01)
+
+# the reference's full-system cell (bench.py:136-151): all 192 frames of
+# that sequence, 8 frames a track_batch dispatch, the same configuration
+BATCH_K = 8
+BATCH_CFG = dict(SLAM_CFG, dispatch_batch=BATCH_K)
+# ATE (m) of the JAX package's track_batch over the same 192 frames and
+# configuration, computed on a CPU by ``python
+# tests/test_torch_slam.py --reference-ate-batched`` (24 keyframes, 191
+# frames tracked); an accuracy figure, not a speed figure
+REF_ATE_BATCHED = 0.15867488086223602
+ATE_GATE_BATCHED = max(0.05, 2.0 * REF_ATE_BATCHED + 0.01)
+BATCH_PROFILE_FRAMES = 24
+BATCH_EAGER_AT = 16     # the graph against the eager body: frames 16-23
+
+# the monocular run: 48 depth-free frames of the line motion (the
+# reference loses ring_out and orbit without depth) over 3000 untextured
+# points, SLAM_CFG, one frame a call.  On the textured 1200-point scene
+# of the 64-frame cell the run turns on the RANSAC draws, in both
+# packages (PERF.md section 6, PR 8): it is run too, and printed
+MONO_SEQUENCE = dict(n_frames=48, n_points=3000, width=640, height=480,
+                     motion="line", depth=False, texture=False, noise=0.01)
+MONO_TEXTURED = dict(MONO_SEQUENCE, n_points=1200, texture=True)
+# the JAX package's run of the same frames (``python
+# tests/test_torch_slam.py --reference-ate-mono``, CPU): ATE after scale
+# alignment (m), frames tracked with at least min_track_inliers inliers
+REF_ATE_MONO = 0.17913846671581268
+REF_TRACKED_MONO = 46
+ATE_GATE_MONO = max(0.05, 2.0 * REF_ATE_MONO + 0.01)
+# that run's RANSAC draws (``python tests/test_torch_slam.py
+# --reference-draws-mono`` writes them), replayed in the gated run: the
+# scaled ATE of a mono run turns on its draws (0.12 to 0.70 m over the
+# port's seeds, 0.18 to 0.36 m over the JAX package's; PERF.md)
+MONO_DRAWS = Path(__file__).resolve().parent / "tests/data/mono_draws.npz"
 
 # the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
 # package's own loop-closure configuration), stock loop-closer settings
@@ -838,17 +903,18 @@ def phase_stages(inputs):
     }
 
 
-def device_profile(step, frames: int, label: str):
+def device_profile(step, frames: int, label: str, calls: int = None):
     """Device busy share of ``step()``: kernel time that torch.profiler
-    records over ``frames`` calls, over their wall time; and the kernels
-    that take the most of it."""
+    records over ``calls`` calls (by default one per frame) that track
+    ``frames`` frames, over their wall time; and the kernels that take
+    the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
+        for _ in range(frames if calls is None else calls):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1113,11 +1179,13 @@ def check_cost(prob, plain, fields, what):
 
 
 def load_frames():
+    """All frames of the full-width sequence (the 64-frame phases take
+    the first SLAM_FRAMES)."""
     t0 = time.perf_counter()
     ds = SyntheticDataset(**SEQUENCE)
     ds.open("synth://")
-    frames = [ds.grab_frame() for _ in range(SLAM_FRAMES)]
-    log(f"sequence: {SLAM_FRAMES} frames {SEQUENCE['height']}x"
+    frames = list(ds)
+    log(f"sequence: {len(frames)} frames {SEQUENCE['height']}x"
         f"{SEQUENCE['width']} rendered in {time.perf_counter() - t0:.1f} s")
     return ds.camera, frames
 
@@ -1135,13 +1203,18 @@ def run_slam(camera, frames, use_kernels=True, seed=0):
     return slam, time.perf_counter() - t0
 
 
-def slam_metrics(slam, frames):
+def slam_metrics(slam, frames, with_scale=False):
     """Trajectory metrics of a run over ``frames`` against their ground
     truth."""
     ts = np.asarray([fr.timestamp for fr in frames])
     gt = np.stack([fr.gt_pose[:3] for fr in frames])
     return evaluate_trajectory(ts, slam.positions(), ts, gt,
-                               with_scale=False)
+                               with_scale=with_scale)
+
+
+def tracked_frames(slam):
+    return sum(st["n_inliers"] >= slam.cfg.min_track_inliers
+               for st in slam.stats)
 
 
 def phase_slam(camera, frames):
@@ -1156,9 +1229,7 @@ def phase_slam(camera, frames):
     if missing:
         raise AssertionError(f"kernels of the SLAM path never ran: "
                              f"{missing}")
-    cfg = slam.cfg
-    tracked = sum(st["n_inliers"] >= cfg.min_track_inliers
-                  for st in slam.stats)
+    tracked = tracked_frames(slam)
     n_kf = slam._n_frames_host
     ba_runs = slam.timer.stats().get("slam/local_ba", {}).get("count", 0)
     pos = slam.positions()
@@ -1222,6 +1293,315 @@ def phase_slam_timing(camera, frames, first_ate):
                 plain_ms_per_frame=runs["plain"][0],
                 split_ms_per_frame=runs["kernels"][1],
                 plain_split_ms_per_frame=runs["plain"][1], profile=prof)
+
+
+def batched_launches(slam, counted):
+    """Kernel launches of a track_batch run from the wrappers' counts
+    over it (``counted``): a wrapper counts when Python calls it, so the
+    capture of each batch graph counted its launches once, though it
+    launched nothing, and its replays counted none.  Each graph adds its
+    captured launches times (replays - 1)."""
+    out = dict(counted)
+    for graph in slam._graphs.values():
+        for name, n in graph.captured.items():
+            out[name] += n * (graph.replays - 1)
+    return out
+
+
+def graph_nodes(graph: BatchGraph) -> int:
+    """Node count of a batch graph's captured cudaGraph_t (the driver's
+    cuGraphGetNodes; the CUDA runtime's graph is the driver's)."""
+    lib = ctypes.CDLL(ctypes.util.find_library("cuda") or "libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.graph.raw_cuda_graph()),
+                              None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {err}")
+    return n.value
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, for a bit-for-bit comparison (NaN equals NaN)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def run_batched(camera, frames, seed=0):
+    """A fresh KeyframeSLAM through track_batch over ``frames``, 8 a
+    dispatch; (slam, seconds, seconds of them capturing graphs)."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**BATCH_CFG, seed=seed),
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam.track_batch(frames)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return slam, secs, sum(g.capture_s for g in slam._graphs.values())
+
+
+def phase_batched(camera, frames):
+    """The reference's full-system cell: track_batch over all frames,
+    counters around it; the gates; the graph's record; a second run
+    that repeats the ATE bit for bit."""
+    reset_counts()
+    slam, secs, cap_s = run_batched(camera, frames)
+    launched = batched_launches(slam, counts())
+    n = len(frames)
+    graphs = list(slam._graphs.values())
+    log(f"track_batch path launches over {n} frames: {launched} ({secs:.2f}"
+        f" s, first run, {cap_s:.3f} s of it capturing)")
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the batched path never ran: "
+                             f"{missing}")
+    poses = torch.stack(slam.trajectory).cpu().numpy()
+    tracked = tracked_frames(slam)
+    n_kf = slam._n_frames_host
+    m = slam_metrics(slam, frames)
+    section = slam.timer.stats().get("slam/track_batch", {})
+    # kf_max_gap (8) = K: a dispatch that starts after a keyframe meets
+    # the keyframe predicate on its K-th frame, in the JAX package too
+    # (a keyframe every 8 frames there), so a dispatch takes at most K - 1
+    # frames before its trigger frame
+    whole = sum(a >= BATCH_K - 1 for a in slam.batch_accepted)
+    if len(graphs) != 1:
+        raise AssertionError(f"{len(graphs)} batch graphs, expected one")
+    g = graphs[0]
+    nodes = graph_nodes(g)
+    log(f"batch graph (K={BATCH_K}, {SEQUENCE['height']}x"
+        f"{SEQUENCE['width']}, M={SLAM_CFG['local_map_size']}): captured in "
+        f"{g.capture_s:.3f} s, {nodes} nodes, memory pool "
+        f"{g.pool_bytes / 2 ** 20:.1f} MiB, replays {g.replays}, launches a "
+        f"replay {g.captured}")
+    log(f"track_batch: {tracked}/{n} frames tracked, {n_kf} keyframes, "
+        f"{section.get('count', 0)} dispatches, frames accepted per dispatch "
+        f"{slam.batch_accepted}, ATE {m.ate_rmse!r} m (gate "
+        f"{ATE_GATE_BATCHED:.4f} m; JAX reference {REF_ATE_BATCHED:.6f} m), "
+        f"RPE {m.rpe_rmse:.6f} m")
+    if poses.shape != (n, 7) or not np.isfinite(poses).all():
+        raise AssertionError("batched trajectory not finite or of the wrong "
+                             "shape")
+    if tracked < 0.9 * n or n_kf < 3:
+        raise AssertionError(f"{tracked} of {n} frames tracked, {n_kf} "
+                             "keyframes")
+    if section.get("count", 0) < 1 or whole < 1:
+        raise AssertionError("no batch dispatched, or none accepted up to "
+                             "its K-th frame")
+    if not m.ate_rmse <= ATE_GATE_BATCHED:
+        raise AssertionError(f"ATE {m.ate_rmse} m above {ATE_GATE_BATCHED} m")
+    slam2, secs2, _ = run_batched(camera, frames)
+    ate2 = slam_metrics(slam2, frames).ate_rmse
+    log(f"track_batch second run: ATE {ate2!r} m ({secs2:.2f} s)")
+    if ate2 != m.ate_rmse:
+        raise AssertionError("the second batched run's ATE differs")
+    return launched, dict(
+        frames=n, dispatch_batch=BATCH_K, tracked=tracked, keyframes=n_kf,
+        ate_m=m.ate_rmse, rpe_m=m.rpe_rmse, dispatches=section.get("count"),
+        batches_accepted_to_kth_frame=whole, first_run_s=secs,
+        graph=dict(capture_s=g.capture_s, nodes=nodes,
+                   pool_bytes=g.pool_bytes, replays=g.replays,
+                   launches_per_replay=g.captured))
+
+
+def phase_graph_vs_eager(camera, frames):
+    """The captured graph against the same K-frame body run eagerly, on
+    one batch (frames BATCH_EAGER_AT onwards after tracking the frames
+    before one a call) with the same uniforms: every output bit for bit,
+    twice."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**BATCH_CFG), device=DEVICE)
+    for fr in frames[:BATCH_EAGER_AT]:
+        slam.track(fr)
+    batch = frames[BATCH_EAGER_AT:BATCH_EAGER_AT + BATCH_K]
+    imgs = torch.from_numpy(np.stack([fr.image for fr in batch])).to(DEVICE)
+    slab = slam._slab(slam.arena, slam._kf_tensor())
+    x = slam._batch_inputs(imgs, slam._batch_uniforms(BATCH_K), *slab[1:])
+    t0 = time.perf_counter()
+    eager = slam._batch_body(x)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    graph = BatchGraph(slam._batch_body, x)
+    replay_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = graph(x)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        leaves = list(zip(tensor_leaves(out), tensor_leaves(eager)))
+        differ = [i for i, (a, b) in enumerate(leaves)
+                  if a.shape != b.shape or not torch.equal(bits(a), bits(b))]
+        if differ:
+            raise AssertionError(f"graph replay differs from the eager body "
+                                 f"in outputs {differ}")
+    rows = eager.rows.cpu().numpy()
+    log(f"graph vs eager body, frames {BATCH_EAGER_AT}-"
+        f"{BATCH_EAGER_AT + BATCH_K - 1}: {len(leaves)} outputs bit for bit "
+        f"equal in two replays (poses, packed rows, visible / found, frozen "
+        f"trigger state); inliers {rows[:, 14].astype(int).tolist()}, "
+        f"trigger {rows[:, 17].astype(int).tolist()}; eager body "
+        f"{eager_s * 1e3:.3f} ms, replay {replay_ms[0]:.3f}/"
+        f"{replay_ms[1]:.3f} ms (host wall to a synchronize)")
+    return dict(outputs=len(leaves), eager_ms=eager_s * 1e3,
+                replay_ms=replay_ms)
+
+
+def warm_profile(camera, frames, batched: bool):
+    """Device busy share over BATCH_PROFILE_FRAMES frames of a warm
+    system: after the bootstrap and one batch's worth of frames (a
+    batched system's graph captured then), the next frames one track()
+    call each, or one track_batch call."""
+    cfg = BATCH_CFG if batched else SLAM_CFG
+    slam = KeyframeSLAM(camera, SLAMConfig(**cfg), device=DEVICE)
+    warm = frames[:1 + BATCH_K]
+    window = frames[len(warm):len(warm) + BATCH_PROFILE_FRAMES]
+    if batched:
+        slam.track_batch(warm)
+        return device_profile(lambda: slam.track_batch(window), len(window),
+                              "track_batch", calls=1)
+    for fr in warm:
+        slam.track(fr)
+    it = iter(window)
+    return device_profile(lambda: slam.track(next(it)), len(window),
+                          "track (sequential)")
+
+
+def phase_batch_timing(camera, frames):
+    """Sequential track against track_batch over all frames, in turns
+    (sequential, batched, batched, sequential), each a fresh system;
+    then the device busy share of each over warm frames.  No gain is
+    claimed: the host's speed differs from call to call."""
+    n = len(frames)
+    runs = []
+    for label in ("sequential", "batched", "batched", "sequential"):
+        if label == "batched":
+            slam, secs, cap_s = run_batched(camera, frames)
+        else:
+            slam, secs = run_slam(camera, frames)
+            cap_s = 0.0
+        split = split_ms(slam, n)
+        ms = secs * 1e3 / n
+        runs.append(dict(run=label, ms_per_frame=ms, frames_per_s=n / secs,
+                         capture_s=cap_s,
+                         ms_per_frame_without_capture=(secs - cap_s) * 1e3 / n,
+                         ate_m=slam_metrics(slam, frames).ate_rmse,
+                         keyframes=slam._n_frames_host, split_ms=split))
+        log(f"{label} over {n} frames: {ms:.3f} ms/frame ({n / secs:.2f} "
+            f"frames/s; {(secs - cap_s) * 1e3 / n:.3f} ms/frame without the "
+            f"{cap_s:.3f} s of graph capture); ATE {runs[-1]['ate_m']:.6f} m, "
+            f"{slam._n_frames_host} keyframes; split ms/frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; rest (host glue) {ms - sum(split.values()):.3f}")
+    prof = {"sequential": warm_profile(camera, frames, False),
+            "batched": warm_profile(camera, frames, True)}
+    return dict(runs=runs, profile=prof)
+
+
+class ReferenceDraws:
+    """A ``uniforms`` hook that replays a recorded run's RANSAC draws
+    (``tests/test_torch_slam.py --reference-draws-mono``) in order: the
+    two-view pair while the system has no map, a (256, 4) PnP draw once
+    it has one.  Raises when the system asks for another kind of draw
+    than the recorded run took at that point, or for more."""
+
+    def __init__(self, path=MONO_DRAWS, device=None):
+        device = device or DEVICE
+        with np.load(path) as d:
+            self.kind = d["kind"].tolist()
+            self.inliers = d["inliers"].tolist()
+            self.draws = {
+                0: iter(torch.as_tensor(d["pnp"], device=device)),
+                1: iter(zip(torch.as_tensor(d["two_view_e"], device=device),
+                            torch.as_tensor(d["two_view_h"], device=device)))}
+        self.taken = 0
+        self.slam = None
+
+    def __call__(self):
+        kind = 0 if self.slam.initialized else 1
+        if self.kind[self.taken:self.taken + 1] != [kind]:
+            raise AssertionError(f"draw {self.taken}: the system asks for "
+                                 f"kind {kind}, the recorded run took "
+                                 f"{self.kind[self.taken:self.taken + 1]}")
+        self.taken += 1
+        return next(self.draws[kind])
+
+
+def run_mono(camera, frames, draws=None):
+    """A fresh KeyframeSLAM over the depth-free ``frames`` one a call,
+    with ``draws`` as its uniforms hook, else its own generator; (slam,
+    seconds)."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**SLAM_CFG), device=DEVICE,
+                        uniforms=draws)
+    if draws is not None:
+        draws.slam = slam
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr in frames:
+        slam.track(fr)
+    torch.cuda.synchronize()
+    return slam, time.perf_counter() - t0
+
+
+def mono_record(slam, frames):
+    m = slam_metrics(slam, frames, with_scale=True)
+    return dict(first_mapped=next((i for i, st in enumerate(slam.stats)
+                                   if st["n_kf"] > 0), None),
+                tracked=tracked_frames(slam), keyframes=slam._n_frames_host,
+                ate_scaled_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+                finite=bool(np.isfinite(slam.positions()).all()),
+                inliers=[st["n_inliers"] for st in slam.stats])
+
+
+def render(sequence):
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(**sequence)
+    ds.open("synth://")
+    frames = list(ds)
+    return ds.camera, frames, time.perf_counter() - t0
+
+
+def phase_mono():
+    """KeyframeSLAM over the depth-free frames one a call with the JAX
+    package's draws replayed, counters around it; the bootstrap,
+    keyframe, kernel, tracked-frame and ATE gates.  Then, for the record,
+    the same frames with the system's own draws and the textured
+    scene."""
+    camera, frames, render_s = render(MONO_SEQUENCE)
+    draws = ReferenceDraws()
+    reset_counts()
+    slam, secs = run_mono(camera, frames, draws)
+    launched = counts()
+    n = len(frames)
+    rec = mono_record(slam, frames)
+    log(f"mono path launches over {n} frames: {launched} ({secs:.2f} s, "
+        f"{render_s:.1f} s rendering)")
+    log(f"mono, the JAX package's {draws.taken} draws replayed: map made on "
+        f"frame {rec['first_mapped']}, {rec['tracked']}/{n} frames tracked "
+        f"(JAX reference {REF_TRACKED_MONO}), {rec['keyframes']} keyframes, "
+        f"ATE after scale alignment {rec['ate_scaled_m']!r} m (gate "
+        f"{ATE_GATE_MONO:.4f} m; JAX reference {REF_ATE_MONO:.6f} m); inliers "
+        f"{rec['inliers']}, the reference's {draws.inliers}")
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the mono path never ran: {missing}")
+    if not slam.initialized or rec["keyframes"] < 3:
+        raise AssertionError(f"mono: initialized {slam.initialized}, "
+                             f"{rec['keyframes']} keyframes")
+    if rec["tracked"] < REF_TRACKED_MONO - 5:
+        raise AssertionError(f"mono: {rec['tracked']} frames tracked, the "
+                             f"reference {REF_TRACKED_MONO}")
+    if not (rec["finite"] and rec["ate_scaled_m"] <= ATE_GATE_MONO):
+        raise AssertionError(f"mono ATE {rec['ate_scaled_m']} m above "
+                             f"{ATE_GATE_MONO}")
+    own = mono_record(run_mono(camera, frames)[0], frames)
+    camera, frames, _ = render(MONO_TEXTURED)
+    textured = mono_record(run_mono(camera, frames)[0], frames)
+    for label, r in (("the system's own draws", own),
+                     ("the textured 1200-point scene", textured)):
+        log(f"mono, {label} (not gated): map made on frame "
+            f"{r['first_mapped']}, {r['tracked']}/{n} frames tracked, "
+            f"{r['keyframes']} keyframes, ATE after scale alignment "
+            f"{r['ate_scaled_m']!r} m")
+    return launched, dict(frames=n, **rec, ms_per_frame=secs * 1e3 / n,
+                          own_draws=own, textured=textured)
 
 
 def schur_work(prob):
@@ -1423,8 +1803,7 @@ def phase_loop():
     m = evaluate_trajectory(ts, corrected, ts, gt, with_scale=False)
     m_raw = evaluate_trajectory(ts, slam.positions(), ts, gt,
                                 with_scale=False)
-    tracked = sum(st["n_inliers"] >= slam.cfg.min_track_inliers
-                  for st in slam.stats)
+    tracked = tracked_frames(slam)
     st = slam.timer.stats()
     split = {k.split("/")[1]: v["total"] * 1e3 / n for k, v in st.items()}
     top = sum(v for k, v in split.items() if k != "loop_gba")  # nested
@@ -1638,11 +2017,19 @@ def main() -> int:
     t = phase("check B4-B6", t)
     camera, frames = load_frames()
     rec.update(phase_check_fast_frame(frames[0]))
-    launched_slam, slam_checks = phase_slam(camera, frames)
+    launched_slam, slam_checks = phase_slam(camera, frames[:SLAM_FRAMES])
     t = phase("KeyframeSLAM main path", t)
-    slam_times = phase_slam_timing(camera, frames, slam_checks["ate_m"])
+    slam_times = phase_slam_timing(camera, frames[:SLAM_FRAMES],
+                                   slam_checks["ate_m"])
     t = phase("KeyframeSLAM timing", t)
+    launched_batch, batch_checks = phase_batched(camera, frames)
+    t = phase("track_batch main path", t)
+    batch_checks["graph_vs_eager"] = phase_graph_vs_eager(camera, frames)
+    batch_times = phase_batch_timing(camera, frames)
+    t = phase("track_batch timing", t)
     del frames
+    launched_mono, mono_checks = phase_mono()
+    t = phase("mono main path", t)
     rec_v = phase_check_vocab()
     t = phase("check B7", t)
     launched_loop, loop_run = phase_loop()
@@ -1671,6 +2058,17 @@ def main() -> int:
                     "shape": [SEQUENCE["height"], SEQUENCE["width"]],
                     **slam_checks, **slam_times,
                     "launches": launched_slam}))
+    log(json.dumps({"slice": "keyframe_slam_batched",
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    **batch_checks, **batch_times,
+                    "launches": launched_batch,
+                    "launches_per_frame": {
+                        k: v / batch_checks["frames"]
+                        for k, v in launched_batch.items()}}))
+    log(json.dumps({"slice": "keyframe_slam_mono",
+                    "shape": [MONO_SEQUENCE["height"],
+                              MONO_SEQUENCE["width"]],
+                    **mono_checks, "launches": launched_mono}))
     log(json.dumps({"slice": "loop_closure",
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],

@@ -11,15 +11,17 @@ easy to find:
   vocabulary, with the detector, BRIEF sampler, both matchers and the
   vocabulary tree descent as CUDA kernels in
   :mod:`gslam_tpu_torch.ops.cuda` (sources in ``csrc/``);
-* :mod:`gslam_tpu_torch.estimation` — batched RANSAC, P3P PnP and
-  Umeyama alignment;
+* :mod:`gslam_tpu_torch.estimation` — batched RANSAC, P3P and DLT PnP,
+  two-view geometry (essential, fundamental and homography matrices,
+  triangulation, the H / E bootstrap) and Umeyama alignment;
 * :mod:`gslam_tpu_torch.map` — the fixed-capacity map arena;
 * :mod:`gslam_tpu_torch.opt` — Schur-complement LM bundle adjustment
   (local and global), with the Schur reduction and the cost as CUDA
   kernels, and the SE(3) / Sim(3) pose graph;
 * :mod:`gslam_tpu_torch.models` — the fused tracking step
-  ``track_forward``, the sequential RGB-D ``KeyframeSLAM`` and its
-  ``LoopCloser`` (loop closure and relocalization);
+  ``track_forward``, ``KeyframeSLAM`` (RGB-D and monocular, one frame a
+  call or K a dispatch, the K-frame body one CUDA graph on the card) and
+  its ``LoopCloser`` (loop closure and relocalization);
 * :mod:`gslam_tpu_torch.datasets`, :mod:`gslam_tpu_torch.eval` — the
   synthetic sequences and ATE / RPE;
 * :mod:`gslam_tpu_torch.convert` — numpy <-> tensor conversion of the

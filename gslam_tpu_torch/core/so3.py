@@ -18,7 +18,7 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ hypotheses from a batched closed-form P3P (Grunert's quartic, Ferrari's
 method in float32 with Newton polish), each minimal sample giving up to
 four poses disambiguated by a fourth point; refinement on the inliers
 is Gauss-Newton on the SE(3) tangent.  The JAX package ``vmap``s over
-samples and roots; here those are batch dimensions written out.
+samples and roots; here those are batch dimensions written out.  The
+6-point DLT (``_dlt_pnp``) is there for volumetric scenes, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -19,6 +21,34 @@ from gslam_tpu_torch.core.so3 import matrix_to_quat
 from gslam_tpu_torch.estimation.ransac import run_ransac
 
 _EPS = 1e-12
+
+
+def _dlt_pnp(sample: torch.Tensor) -> torch.Tensor:
+    """(..., k >= 6, 5) rows [X, Y, Z, u, v] (u, v normalized) -> T
+    (..., 7): DLT for P = [R|t] up to scale, the nearest rotation by SVD,
+    the scale from its singular values, and the sign of t that puts most
+    sampled points in front.  For volumetric scenes only (coplanar
+    samples degenerate); no caller on the tracking path."""
+    X = sample[..., :3]
+    u = sample[..., 3:4]
+    v = sample[..., 4:5]
+    Xh = torch.cat([X, torch.ones_like(u)], -1)              # (..., k, 4)
+    z = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, z, -u * Xh], -1),
+                   torch.cat([z, Xh, -v * Xh], -1)], -2)     # (..., 2k, 12)
+    P = torch.linalg.svd(A, full_matrices=True)[2][..., -1, :].reshape(
+        *sample.shape[:-2], 3, 4)
+    U, s, Vt = torch.linalg.svd(P[..., :3])
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d),
+                                      d], -1))
+    Rn = U @ D @ Vt
+    scale = d * 3.0 / s.sum(-1).clamp_min(_EPS)
+    t = P[..., 3] * scale[..., None]
+    front = (X @ Rn.transpose(-1, -2) + t[..., None, :])[..., 2]
+    flip = torch.sign(torch.sum(torch.sign(front), -1))
+    flip = torch.where(flip == 0, torch.ones_like(flip), flip)
+    return se3_make(t * flip[..., None], matrix_to_quat(Rn))
 
 
 def _solve_quartic(c4, c3, c2, c1, c0, newton_iters: int = 4
@@ -185,7 +215,8 @@ def _p3p_grunert(sample: torch.Tensor) -> torch.Tensor:
     best = torch.argmin(errs, -1, keepdim=True)             # first minimum
     pose = torch.take_along_dim(poses, best[..., None], -2)[..., 0, :]
     err_best = torch.take_along_dim(errs, best, -1)
-    ident = pose.new_tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0])
+    z = pose.new_zeros(3)
+    ident = torch.cat([z, pose.new_ones(1), z])   # made on the device
     return torch.where(torch.isfinite(err_best), pose, ident)
 
 

@@ -60,7 +60,8 @@ def run_ransac(fit_fn: Callable[[torch.Tensor], torch.Tensor],
     res = residual_fn(models, data)                     # (B, N)
     good = torch.isfinite(res) & (res < threshold) & valid[None, :]
     best = torch.argmax(good.sum(dim=1))                # first maximum
-    best_model = models[best]
+    # index_select: indexing by a 0-d tensor would read it on the host
+    best_model = models.index_select(0, best.reshape(1))[0]
     best_res = residual_fn(best_model, data)
     inliers = torch.isfinite(best_res) & (best_res < threshold) & valid
     return best_model, inliers, inliers.sum()

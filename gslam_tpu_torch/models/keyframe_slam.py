@@ -1,17 +1,28 @@
-"""Keyframe SLAM, RGB-D sequential path: track against the local map,
-keyframe mapping, local bundle adjustment, loop closure, relocalization,
-map hygiene.
+"""Keyframe SLAM: track against the local map, keyframe mapping, local
+bundle adjustment, loop closure, relocalization, map hygiene.
 
-Counterpart of ``gslam_tpu/models/keyframe_slam.py`` for frames that
-carry depth, one frame per ``track`` call:
+Counterpart of ``gslam_tpu/models/keyframe_slam.py`` for frames with
+depth (RGB-D) and without (monocular), one frame per ``track`` call or K
+per ``track_batch`` dispatch:
 
   track:    extract (FAST + NMS (B1), BRIEF (B2)) -> covisibility slab ->
             projection under the constant-velocity prediction -> gated
             Hamming matching (B4) -> PnP RANSAC + GN refine
+  batch:    ``track_batch`` runs K frames of that chain against one slab
+            with the keyframe and tracking-lost predicates evaluated on
+            the device, and fetches one packed (K, 19) summary; the host
+            accepts the frames before the first that trips a predicate
+            and hands that frame's frozen state to the keyframe or
+            relocalization path.  On the card the K-frame body is one
+            captured CUDA graph (:class:`BatchGraph`)
+  bootstrap: RGB-D, the first keyframe with points from depth; mono,
+            the two-view H / E initialization between the first two
+            frames with enough matches
   keyframe: promotion decided on the host from the frame's one packed
             fetch (match count, inlier count, pose jump, feature count);
             frame insert, fuse of tracked observations, new points from
-            depth away from existing ones
+            depth away from existing ones, or (mono) triangulated
+            against the previous keyframe
   local BA: covisibility window -> Schur LM (B5 normal equations, B6
             cost) -> write-back
   loop:     with a vocabulary, every keyframe goes into the BoW
@@ -26,16 +37,15 @@ carry depth, one frame per ``track`` call:
 The map lives on the device in a :class:`~gslam_tpu_torch.map.arena.
 MapArena`; frame and keyframe decisions read host mirrors of its
 counters, so a tracked frame costs one device fetch.  Not ported yet,
-and raising ``NotImplementedError`` rather than skipped: frames without
-depth (the monocular two-view bootstrap and triangulation), frames with
-IMU samples, ``n_levels > 1`` and ``dispatch_batch > 1`` (ROADMAP Queue
-A items 9, 13, 3 and 12).
+and raising ``NotImplementedError`` rather than skipped: frames with IMU
+samples and ``n_levels > 1`` (ROADMAP Queue A items 13 and 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,6 +54,10 @@ from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.core.se3 import se3_apply, se3_inverse, se3_mul
 from gslam_tpu_torch.core.sim3 import sim3_from_se3
 from gslam_tpu_torch.datasets.base import FrameData
+from gslam_tpu_torch.estimation.epipolar import triangulate
+from gslam_tpu_torch.estimation.init2view import (
+    two_view_draws, two_view_geometry,
+)
 from gslam_tpu_torch.estimation.pnp import find_pnp_ransac
 from gslam_tpu_torch.map.arena import (
     INT32_MAX, MapArena, add_observations, compact_arena, covis_union_ids,
@@ -54,6 +68,7 @@ from gslam_tpu_torch.map.arena import (
 from gslam_tpu_torch.models.loop_closure import (
     LoopCloser, inside_volume, map_volume,
 )
+from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
 from gslam_tpu_torch.ops.cuda.matcher import match_hamming_gated
 from gslam_tpu_torch.ops.frontend import Features, extract_features
 from gslam_tpu_torch.ops.matching import (
@@ -70,17 +85,19 @@ from gslam_tpu_torch.utils.timer import Timer
 RANSAC_B = 256          # hypotheses per frame (find_pnp_ransac's default)
 RELOC_B = 1024          # per relocalization candidate: no pose prior
 RELOC_CANDIDATES = 8
+MONO_MIN_MATCHES = 30   # two-view bootstrap: matches to try, inliers to
+MONO_MIN_INLIERS = 20   # accept
 
 
 @dataclasses.dataclass
 class SLAMConfig:
-    """The JAX package's ``SLAMConfig`` for the RGB-D sequential path,
-    with ``use_pallas`` renamed ``use_kernels``: True routes B1, B2, B4,
-    B5, B6 and B7 through the CUDA kernels (their plain versions on CPU
-    tensors; B5 / B6 up to 32 cameras, the plain Schur path above).  The
-    fields of the paths that are not ported (pyramid scale,
-    visual-inertial BA) and the JAX package's dispatch-fusion switches,
-    which select between equivalent computations, are left out."""
+    """The JAX package's ``SLAMConfig`` with ``use_pallas`` renamed
+    ``use_kernels``: True routes B1, B2, B4, B5, B6 and B7 through the
+    CUDA kernels (their plain versions on CPU tensors; B5 / B6 up to 32
+    cameras, the plain Schur path above).  The fields of the paths that
+    are not ported (pyramid scale, visual-inertial BA) and the JAX
+    package's dispatch-fusion switches, which select between equivalent
+    computations, are left out."""
 
     max_kps: int = 512
     fast_threshold: float = 0.06
@@ -109,7 +126,7 @@ class SLAMConfig:
     cap_points: int = 16384
     cap_obs: int = 65536
     seed: int = 0
-    dispatch_batch: int = 1        # >1: batched dispatch (not ported)
+    dispatch_batch: int = 1        # frames per track_batch dispatch
     enable_map_hygiene: bool = True
     cull_min_visible: int = 10
     cull_min_ratio: float = 0.1
@@ -123,8 +140,106 @@ def _not_ported(what: str, item: str):
         f"{item})")
 
 
+class BatchResult(NamedTuple):
+    """What the K-frame body of ``track_batch`` hands back."""
+
+    rows: torch.Tensor        # (K, 19): pose_wc, rel to the last keyframe,
+    #                           n_inliers, n_matches, n_features, first
+    #                           trigger, ok (columns 14-18)
+    pose_wc: torch.Tensor     # (7,) after the last accepted frame
+    velocity: torch.Tensor    # (7,) after the last accepted frame
+    visible: torch.Tensor     # (S,) int32 slab visits of the accepted frames
+    found: torch.Tensor       # (S,) int32 and the first trigger frame
+    feats: Features           # the first trigger frame's features,
+    matches: Matches          # matches, inlier mask and PnP pose (frame 0's
+    inliers: torch.Tensor     # when no frame triggers)
+    T: torch.Tensor
+
+
+def tensor_leaves(x) -> List[torch.Tensor]:
+    """The tensors of a nest of named tuples, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in tensor_leaves(v)]
+
+
+def _rebuild(like, values):
+    """A tuple or named tuple of ``like``'s type holding ``values``."""
+    values = list(values)
+    return type(like)(*values) if hasattr(like, "_fields") else tuple(values)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return _rebuild(x, (_clone(v) for v in x))
+
+
+def _where(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` over two nests of tuples."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    return _rebuild(a, (_where(cond, u, v) for u, v in zip(a, b)))
+
+
+def body_launches() -> Dict[str, int]:
+    """The launch counters of the kernels in the K-frame body: B1, B2
+    and B4."""
+    return {"fast_nms": fastnms.launches, "brief": brief.launches,
+            "gated_matcher": matcher.gated_launches}
+
+
+class BatchGraph:
+    """The K-frame body of ``track_batch`` captured as one CUDA graph:
+    the counterpart of the JAX package's single ``lax.scan`` dispatch.
+
+    The first inputs are cloned into static buffers, the body runs once
+    on a side stream (warm-up: libraries, caches and the kernels' first
+    launches), then once under ``torch.cuda.graph``.  A call copies its
+    inputs into the static buffers and replays; the outputs are the
+    graph's own buffers, overwritten by the next replay.  Nothing falls
+    back to the eager body: a failed capture or replay raises.
+
+    The kernel wrappers count launches when Python calls them, so a
+    replay moves no counter: ``captured`` holds the launches one replay
+    makes (counted during the capture, which launches nothing on the
+    card) and ``replays`` the replays so far.  ``capture_s`` and
+    ``pool_bytes`` (the graph's memory pool) are for the record."""
+
+    def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor]):
+        self.static = {k: v.clone() for k, v in inputs.items()}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body(self.static)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        before = body_launches()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph):
+            self.out = body(self.static)
+        self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        after = body_launches()
+        self.captured = {k: after[k] - before[k] for k in after}
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.replays = 0
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
+        for k, v in inputs.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
 class KeyframeSLAM:
-    """``KeyframeSLAM(camera, SLAMConfig(...)).track(frame)`` per frame.
+    """``KeyframeSLAM(camera, SLAMConfig(...)).track(frame)`` per frame,
+    or ``.track_batch(frames)`` for ``cfg.dispatch_batch`` frames a
+    dispatch.
 
     Runs on ``device`` (the CUDA card unless the caller asks for the
     CPU).  With a ``vocabulary`` (a
@@ -133,10 +248,12 @@ class KeyframeSLAM:
     tracker relocalizes (``slam.loop_closer``).  RANSAC draws come from
     a ``torch.Generator`` on the device seeded with ``cfg.seed``, or,
     when ``uniforms`` is given, from ``uniforms()``, a callable returning
-    the uniforms of each draw: (256, 4) for a tracked frame, (1024, 4)
-    for a relocalization candidate (the tests replay the JAX package's
-    key chain through it).  The loop closer draws from a generator of
-    its own (``LoopCloser``'s ``seed`` and ``uniforms``).
+    the uniforms of each draw: (256, 4) for a tracked frame (a batch
+    calls it once for each of its K frames before it runs), (1024, 4)
+    for a relocalization candidate, and the pair ((256, 8), (256, 4))
+    for the monocular two-view bootstrap (the tests replay the JAX
+    package's key chain through it).  The loop closer draws from a
+    generator of its own (``LoopCloser``'s ``seed`` and ``uniforms``).
     """
 
     def __init__(self, camera: Camera, config: Optional[SLAMConfig] = None,
@@ -148,9 +265,6 @@ class KeyframeSLAM:
         c = self.cfg
         if c.n_levels > 1:
             raise _not_ported("pyramid extraction (n_levels > 1)", "item 3")
-        if c.dispatch_batch > 1:
-            raise _not_ported("batched dispatch (dispatch_batch > 1)",
-                              "item 12")
         self.timer = Timer()
         self.loop_closer: Optional[LoopCloser] = None
         if vocabulary is not None:
@@ -185,6 +299,10 @@ class KeyframeSLAM:
         self.timestamps: List[float] = []
         self.stats: List[dict] = []
         self._last_track = None            # (slab_ids, matches, inliers)
+        self._prev_feats: Optional[Features] = None   # mono bootstrap
+        self._prev_frame: Optional[FrameData] = None
+        self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
+        self.batch_accepted: List[int] = []  # frames each dispatch took
         # host mirrors of arena counters: n_frames is exact (a frame
         # insert takes slot n_frames), n_points refreshed at the hygiene
         # cadence and used for stats rows only
@@ -263,9 +381,6 @@ class KeyframeSLAM:
         """Track one frame; returns its cam->world pose (7,) on the
         device."""
         c = self.cfg
-        if frame.depth is None:
-            raise _not_ported("monocular tracking (frames without depth)",
-                              "item 9")
         if frame.imu is not None and len(frame.imu) > 1:
             raise _not_ported("visual-inertial tracking (IMU samples)",
                               "item 13")
@@ -276,9 +391,7 @@ class KeyframeSLAM:
                                      threshold=c.fast_threshold,
                                      use_kernels=c.use_kernels)
             self.timer.block(feats.desc)
-        self._cur_kp_depth = self._kp_depths(
-            torch.as_tensor(frame.depth, device=dev), feats)
-        self._cur_kp_color = self._kp_colors(img, feats)
+        self._set_keypoint_samples(frame, img, feats)
 
         n_inliers = 0
         n_matches = 0
@@ -289,26 +402,54 @@ class KeyframeSLAM:
             pred_cw = se3_mul(self.velocity, se3_inverse(self.pose_wc))
             pose_cw, n_matches, n_inliers, jump, n_features = \
                 self._track_local_map(feats, pred_cw)
-            if n_inliers >= c.min_track_inliers and jump <= c.max_pose_jump:
-                self.velocity = se3_mul(pose_cw, self.pose_wc)
-                self.pose_wc = se3_inverse(pose_cw)
-                self.frames_since_kf += 1
-                self._lost_frames = 0
-                if self._need_keyframe(n_inliers, n_matches):
-                    self._insert_keyframe(frame, feats, pose_cw)
-            else:
-                # lost: coast on the motion model (no keyframe at an
-                # uncertain pose); try BoW relocalization when there is
-                # a vocabulary; after max_lost_frames re-anchor with a
-                # fresh keyframe
-                self._lost_frames += 1
-                self.pose_wc = se3_inverse(pred_cw)
-                if not self._relocalize(feats) \
-                        and self._lost_frames > c.max_lost_frames:
-                    self._insert_keyframe(frame, feats,
-                                          se3_inverse(self.pose_wc))
-                    self._lost_frames = 0
+            ok = n_inliers >= c.min_track_inliers and jump <= c.max_pose_jump
+            self._after_pnp(frame, feats, pose_cw, ok, ok and (
+                self._need_keyframe(n_inliers, n_matches,
+                                    self.frames_since_kf + 1)))
+        self._prev_feats = feats
+        self._prev_frame = frame
+        if n_features is None:
+            n_features = int(feats.count)
+        self._record(frame, n_features, n_matches, n_inliers)
+        return self.pose_wc
 
+    def _set_keypoint_samples(self, frame: FrameData, img: torch.Tensor,
+                              feats: Features) -> None:
+        """The frame's depth (None without depth) and colour at its
+        keypoints, for keyframe insertion."""
+        self._cur_kp_depth = None if frame.depth is None else \
+            self._kp_depths(torch.as_tensor(frame.depth, device=self.device),
+                            feats)
+        self._cur_kp_color = self._kp_colors(img, feats)
+
+    def _after_pnp(self, frame: FrameData, feats: Features, pose_cw,
+                   ok: bool, need_kf: bool) -> None:
+        """track()'s control flow once PnP has run: take the pose (and a
+        keyframe when ``need_kf``), or coast as lost."""
+        c = self.cfg
+        if ok:
+            self.velocity = se3_mul(pose_cw, self.pose_wc)
+            self.pose_wc = se3_inverse(pose_cw)
+            self.frames_since_kf += 1
+            self._lost_frames = 0
+            if need_kf:
+                self._insert_keyframe(frame, feats, pose_cw)
+            return
+        # lost: coast on the motion model (no keyframe at an uncertain
+        # pose); try BoW relocalization when there is a vocabulary; after
+        # max_lost_frames re-anchor with a fresh keyframe
+        self._lost_frames += 1
+        self.pose_wc = se3_inverse(se3_mul(self.velocity,
+                                           se3_inverse(self.pose_wc)))
+        if not self._relocalize(feats) \
+                and self._lost_frames > c.max_lost_frames:
+            self._insert_keyframe(frame, feats, se3_inverse(self.pose_wc))
+            self._lost_frames = 0
+
+    def _record(self, frame: FrameData, n_features: int, n_matches: int,
+                n_inliers: int) -> None:
+        """The frame's trajectory, keyframe-relative pose, timestamp and
+        stats row."""
         self.trajectory.append(self.pose_wc)
         kf = self.last_kf_id
         if kf >= 0:
@@ -317,22 +458,74 @@ class KeyframeSLAM:
         else:
             self._traj_rel.append((-1, self.pose_wc))
         self.timestamps.append(frame.timestamp)
-        if n_features is None:
-            n_features = int(feats.count)
         self.stats.append({
             "n_features": n_features, "n_matches": n_matches,
             "n_inliers": n_inliers, "n_kf": self._n_frames_host,
             "n_points": self._n_points_host})
-        return self.pose_wc
 
     # ------------------------------------------------------------------
     def _initialize(self, frame: FrameData, feats: Features) -> None:
-        """Map bootstrap from depth: the first keyframe at the current
-        pose, with its points."""
-        self._insert_keyframe(frame, feats, se3_inverse(self.pose_wc),
-                              run_ba=False)
-        self._n_points_host = int(self.arena.n_points)
-        self.initialized = self._n_points_host > 20
+        """Map bootstrap.  With depth: the first keyframe at the current
+        pose, with its points.  Without: two-view H / E geometry between
+        the previous frame and this one (at least 30 matches, 20
+        inliers), the previous frame as keyframe 0 at the identity, this
+        one as keyframe 1 at T_21 (unit baseline), and the triangulated
+        inliers as points observed by both.
+
+        Unlike the JAX package, the port also wants 20 of those inliers
+        to triangulate at a depth in (0.1, 100), the window the points
+        must lie in: at the small parallax of two consecutive frames some
+        draws give a motion whose inliers all lie beyond it, a map of a
+        point or two that nothing tracks against (ROADMAP Queue C).  Such
+        a pair is skipped like one with too few inliers, and the next
+        frame tries again."""
+        if self._cur_kp_depth is not None:
+            self._insert_keyframe(frame, feats, se3_inverse(self.pose_wc),
+                                  run_ba=False)
+            self._n_points_host = int(self.arena.n_points)
+            self.initialized = self._n_points_host > 20
+            return
+        pf = self._prev_feats
+        if pf is None:
+            return
+        cam = self.camera
+        m = match_descriptors(pf.desc, pf.valid, feats.desc, feats.valid)
+        if int(m.count) < MONO_MIN_MATCHES:
+            return
+        kp = m.idx.clamp_min(0).long()
+        rays1 = cam.unproject(pf.uv)[:, :2]
+        rays2 = cam.unproject(feats.uv[kp])[:, :2]
+        # H / E model selection: the 8-point essential solve degenerates
+        # on (near-)planar bootstrap scenes, which the homography covers
+        tv = two_view_geometry(rays1, rays2, m.valid, sigma=1.0 / cam.fx,
+                               uniforms=self._two_view_draws())
+        if int(tv.n_inliers) < MONO_MIN_INLIERS:
+            return
+        I7 = self._identity()
+        X, d1 = triangulate(I7, tv.T_21, rays1, rays2)
+        good = tv.inliers & (d1 > 0.1) & (d1 < 100.0)
+        if int(good.sum()) < MONO_MIN_INLIERS:
+            return
+        kf0 = self._insert_frame_only(self._prev_frame, pf, I7)
+        self.arena, pids = insert_points(self.arena, X, pf.desc, good,
+                                         ref_frame=kf0)
+        self.arena = add_observations(self.arena, kf0, pids,
+                                      self._kp_range(), good)
+        kf1 = self._insert_frame_only(frame, feats, tv.T_21)
+        self.arena = add_observations(self.arena, kf1, pids, kp,
+                                      good & m.valid)
+        self.pose_wc = se3_inverse(tv.T_21)
+        self.last_kf_id = kf1
+        self.initialized = True
+
+    def _two_view_draws(self):
+        if self._uniforms is not None:
+            return self._uniforms()
+        return two_view_draws(generator=self._gen, device=self.device)
+
+    def _kp_range(self) -> torch.Tensor:
+        return torch.arange(self.cfg.max_kps, dtype=torch.int32,
+                            device=self.device)
 
     def _slab(self, arena: MapArena, last_kf):
         """Covisibility slab of ``last_kf``: (ids, xyz, desc, valid)."""
@@ -381,11 +574,203 @@ class KeyframeSLAM:
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
 
     # ------------------------------------------------------------------
-    def _need_keyframe(self, n_inliers: int, n_matches: int) -> bool:
+    def track_batch(self, frames: List[FrameData]) -> List[torch.Tensor]:
+        """Track ``frames`` with ``cfg.dispatch_batch`` (K) frames a
+        dispatch; returns each frame's cam->world pose (7,) on the device,
+        as a sequence of ``track`` calls would.
+
+        Each dispatch is :meth:`_batch_body` over K frames against one
+        covisibility slab: one copy of the K images to the device, one
+        draw of their RANSAC uniforms, one packed (K, 19) fetch.  The
+        frames before the first that needs a keyframe or lost tracking
+        are accepted; that frame goes to the keyframe / relocalization
+        path from its frozen state (:meth:`_handle_trigger_frame`).
+        ``track`` takes the frame instead when K is 1, the map is not
+        initialized, the batch's first frame carries IMU samples, or
+        fewer than K frames are left."""
         c = self.cfg
-        if self.frames_since_kf < c.kf_min_gap:
+        K = max(int(c.dispatch_batch), 1)
+        dev = self.device
+        out: List[torch.Tensor] = []
+        i = 0
+        while i < len(frames):
+            fr = frames[i]
+            if (K == 1 or not self.initialized or fr.imu is not None
+                    or c.n_levels > 1 or len(frames) - i < K):
+                out.append(self.track(fr))
+                i += 1
+                continue
+            batch = frames[i:i + K]
+            imgs = torch.from_numpy(np.stack(
+                [np.asarray(f.image, np.float32) for f in batch])).to(dev)
+            uniforms = self._batch_uniforms(K)
+            with self.timer.section("slam/track_batch"):
+                slab_ids, xyz, desc, valid = self._slab(self.arena,
+                                                        self._kf_tensor())
+                res = self._run_batch(self._batch_inputs(imgs, uniforms, xyz,
+                                                         desc, valid))
+                rows = res.rows.cpu().numpy()         # the one fetch
+            n_inl = rows[:, 14].astype(np.int64)
+            n_match = rows[:, 15].astype(np.int64)
+            n_feat = rows[:, 16].astype(np.int64)
+            trig = np.nonzero(rows[:, 17] > 0.5)[0]
+            n_accept = int(trig[0]) if len(trig) else K
+            self.batch_accepted.append(n_accept)
+            for j in range(n_accept):
+                self.trajectory.append(res.rows[j, :7])
+                self._traj_rel.append((self.last_kf_id, res.rows[j, 7:14]))
+                self.timestamps.append(batch[j].timestamp)
+                self.stats.append({
+                    "n_features": int(n_feat[j]), "n_matches": int(n_match[j]),
+                    "n_inliers": int(n_inl[j]), "n_kf": self._n_frames_host,
+                    "n_points": self._n_points_host})
+            # the statistics cover the accepted frames and the trigger
+            # frame: applied even when a trigger heads the batch
+            a = self.arena
+            self.arena = a.replace(
+                point_visible=a.point_visible.index_add(0, slab_ids,
+                                                        res.visible),
+                point_found=a.point_found.index_add(0, slab_ids, res.found))
+            if n_accept > 0:
+                self.pose_wc = res.pose_wc
+                self.velocity = res.velocity
+                self.frames_since_kf += n_accept
+                self._lost_frames = 0
+            out.extend(res.rows[j, :7] for j in range(n_accept))
+            i += n_accept
+            if n_accept < K:
+                j = n_accept
+                out.append(self._handle_trigger_frame(
+                    batch[j], imgs[j], res, slab_ids, bool(rows[j, 18] > 0.5),
+                    int(n_inl[j]), int(n_match[j]), int(n_feat[j])))
+                i += 1
+        return out
+
+    def _batch_uniforms(self, K: int) -> torch.Tensor:
+        """The RANSAC uniforms of K frames, (K, 256, 4), in one draw (or
+        K calls of the ``uniforms`` hook, frame by frame)."""
+        if self._uniforms is not None:
+            return torch.stack([self._uniforms() for _ in range(K)]).to(
+                self.device)
+        return torch.rand((K, RANSAC_B, 4), generator=self._gen,
+                          device=self.device)
+
+    def _batch_inputs(self, imgs, uniforms, xyz, desc, valid
+                      ) -> Dict[str, torch.Tensor]:
+        """The K-frame body's inputs: everything it reads, as tensors (a
+        replayed graph reads nothing else, since the arena's tensors are
+        replaced between batches)."""
+        return dict(
+            imgs=imgs, uniforms=uniforms, pose_wc=self.pose_wc,
+            velocity=self.velocity,
+            fs_kf=torch.full((), self.frames_since_kf, dtype=torch.int32,
+                             device=self.device),
+            slab_xyz=xyz, slab_desc=desc, slab_valid=valid,
+            kf_pose=self.arena.frame_pose[self.last_kf_id][:7])
+
+    def _run_batch(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
+        """The K-frame body: eager on the CPU; on the card, a replay of
+        this system's graph for the inputs' shapes (captured on first
+        use), its outputs copied out of the graph's buffers."""
+        if self.device.type != "cuda":
+            return self._batch_body(inputs)
+        key = tuple(inputs["imgs"].shape)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = BatchGraph(self._batch_body, inputs)
+        return _clone(graph(inputs))
+
+    def _batch_body(self, x: Dict[str, torch.Tensor]) -> BatchResult:
+        """K frames of extract (B1, B2) -> projection under the
+        constant-velocity prediction -> gated matching (B4) -> PnP RANSAC
+        + GN refine against the fixed slab, with track()'s gates and
+        _need_keyframe's predicate on the device.  The state stops at
+        the first frame that trips either (``stopped``); that frame's
+        features, matches, inliers and pose are frozen for the host.  No
+        host reads, so that the card can capture it as one graph."""
+        c = self.cfg
+        cam = self.camera
+        xyz, desc, valid = x["slab_xyz"], x["slab_desc"], x["slab_valid"]
+        pose_wc, velocity, fs = x["pose_wc"], x["velocity"], x["fs_kf"]
+        thr = (c.pnp_px_threshold / cam.fx) ** 2
+        match = match_hamming_gated if c.use_kernels \
+            else match_descriptors_gated
+        stopped = torch.zeros((), dtype=torch.bool, device=xyz.device)
+        visits = torch.zeros(xyz.shape[0], dtype=torch.int32,
+                             device=xyz.device)
+        found = torch.zeros_like(visits)
+        rows, frozen = [], None
+        for img, uni in zip(x["imgs"], x["uniforms"]):
+            feats = extract_features(img, max_kps=c.max_kps,
+                                     threshold=c.fast_threshold,
+                                     use_kernels=c.use_kernels)
+            pred_cw = se3_mul(velocity, se3_inverse(pose_wc))
+            uv_pred, proj_ok = cam.project(se3_apply(pred_cw, xyz))
+            visible = valid & proj_ok
+            m = match(desc, visible, feats.desc, feats.valid, uv_pred,
+                      feats.uv, c.gate_radius_px, max_dist=c.match_max_dist,
+                      ratio=c.match_ratio)
+            rays = cam.unproject(feats.uv[m.idx.clamp_min(0).long()])[:, :2]
+            T, inl, n = find_pnp_ransac(xyz, rays, m.valid, threshold=thr,
+                                        B=RANSAC_B, uniforms=uni)
+            jump = torch.linalg.vector_norm(
+                se3_inverse(T)[:3] - se3_inverse(pred_cw)[:3])
+            ok = (n >= c.min_track_inliers) & (jump <= c.max_pose_jump)
+            fs1 = fs + 1
+            ref = m.count.clamp_min(1).to(torch.float32)
+            need_kf = (fs1 >= c.kf_min_gap) & (
+                (fs1 >= c.kf_max_gap)
+                | (n.to(torch.float32) / ref < c.kf_min_inlier_frac)
+                | (n < 2 * c.min_track_inliers))
+            trigger = ~ok | need_kf
+            accept = ~stopped & ~trigger
+            first = ~stopped & trigger
+            velocity = torch.where(accept, se3_mul(T, pose_wc), velocity)
+            pose_wc = torch.where(accept, se3_inverse(T), pose_wc)
+            fs = torch.where(accept, fs1, fs)
+            # visible / found count the accepted frames and the trigger
+            visits = visits + (visible & ~stopped).to(torch.int32)
+            found = found + (m.valid & inl & ~stopped).to(torch.int32)
+            state = (feats, m, inl, T)
+            frozen = state if frozen is None else _where(first, state,
+                                                         frozen)
+            rows.append(torch.cat([
+                pose_wc, se3_mul(x["kf_pose"], pose_wc),
+                torch.stack([n.to(torch.float32), m.count.to(torch.float32),
+                             feats.count.to(torch.float32),
+                             first.to(torch.float32),
+                             ok.to(torch.float32)])]))
+            stopped = stopped | trigger
+        return BatchResult(torch.stack(rows), pose_wc, velocity, visits,
+                           found, *frozen)
+
+    def _handle_trigger_frame(self, frame: FrameData, img: torch.Tensor,
+                              res: BatchResult, slab_ids, ok: bool,
+                              n_inliers: int, n_matches: int,
+                              n_feats: int) -> torch.Tensor:
+        """The frame that stopped a batch, from the state the batch froze
+        (its extraction, matching and RANSAC are not run again): track()'s
+        control flow after PnP, where an accepted pose needs a keyframe."""
+        self._set_keypoint_samples(frame, img, res.feats)
+        self._last_track = (slab_ids, res.matches, res.inliers)
+        self._after_pnp(frame, res.feats, res.T, ok, ok)
+        self._prev_feats = res.feats
+        self._prev_frame = frame
+        self._record(frame, n_feats, n_matches, n_inliers)
+        return self.pose_wc
+
+    # ------------------------------------------------------------------
+    def _need_keyframe(self, n_inliers: int, n_matches: int,
+                       frames_since_kf: Optional[int] = None) -> bool:
+        """Keyframe promotion, at ``frames_since_kf`` (by default the
+        current count) frames since the last keyframe; the batch body
+        evaluates the same predicate on the device."""
+        c = self.cfg
+        fs = self.frames_since_kf if frames_since_kf is None \
+            else frames_since_kf
+        if fs < c.kf_min_gap:
             return False
-        if self.frames_since_kf >= c.kf_max_gap:
+        if fs >= c.kf_max_gap:
             return True
         ref = max(n_matches, 1)
         return (n_inliers / ref) < c.kf_min_inlier_frac or \
@@ -450,15 +835,35 @@ class KeyframeSLAM:
         arena, pids = insert_points(arena, pts_w, feats.desc, newok,
                                     ref_frame=fid, normal=nrm,
                                     color=self._cur_kp_color)
-        return add_observations(
-            arena, fid, pids,
-            torch.arange(c.max_kps, dtype=torch.int32, device=self.device),
-            newok)
+        return add_observations(arena, fid, pids, self._kp_range(), newok)
+
+    def _triangulate_new_points(self, arena, fid, feats, pose_cw):
+        """Mono mapping: keypoints matched (plain Hamming matcher) to the
+        previous keyframe's, triangulated between the two poses, become
+        points observed by both."""
+        c = self.cfg
+        prev = self.last_kf_id
+        if prev < 0:
+            return arena
+        prev_valid = self._kp_range() < arena.frame_kp_count[prev]
+        m = match_descriptors(arena.frame_desc[prev], prev_valid, feats.desc,
+                              feats.valid)
+        kp = m.idx.clamp_min(0).long()
+        rays1 = self.camera.unproject(arena.frame_kp_uv[prev])[:, :2]
+        rays2 = self.camera.unproject(feats.uv[kp])[:, :2]
+        X, d1 = triangulate(arena.frame_pose[prev][:7], pose_cw, rays1, rays2)
+        d2 = se3_apply(pose_cw, X)[:, 2]
+        good = m.valid & (d1 > 0.05) & (d2 > 0.05) & (d1 < 1e3)
+        arena, pids = insert_points(arena, X, feats.desc[kp], good,
+                                    ref_frame=fid)
+        arena = add_observations(arena, prev, pids, self._kp_range(), good)
+        return add_observations(arena, fid, pids, kp, good)
 
     def _insert_keyframe(self, frame: FrameData, feats: Features, pose_cw,
                          run_ba: bool = True) -> None:
         """Frame write; for a tracked frame, the fuse of its tracked
-        observations; new points from depth away from existing ones.
+        observations; new points from depth away from existing ones, or,
+        without depth, triangulated against the previous keyframe.
 
         The JAX package runs a tracked frame's insertion as one fused
         graph and the bootstrap stage by stage; in eager PyTorch both
@@ -481,12 +886,17 @@ class KeyframeSLAM:
                 self.arena, matched = self._fuse_tracked(
                     self.arena, fid, pose_cw, feats, slab_ids, m, inl)
             d = self._cur_kp_depth
-            newok = feats.valid & ~matched & (d > 1e-3) & torch.isfinite(d)
-            if self.initialized:
-                newok = newok & ~self._near_existing(
-                    self.arena, self._kf_tensor(), pose_cw, feats.uv)
-            self.arena = self._new_points(self.arena, fid, pose_cw, feats,
-                                          newok)
+            if d is not None:
+                newok = (feats.valid & ~matched & (d > 1e-3)
+                         & torch.isfinite(d))
+                if self.initialized:
+                    newok = newok & ~self._near_existing(
+                        self.arena, self._kf_tensor(), pose_cw, feats.uv)
+                self.arena = self._new_points(self.arena, fid, pose_cw,
+                                              feats, newok)
+            elif self.initialized:
+                self.arena = self._triangulate_new_points(self.arena, fid,
+                                                          feats, pose_cw)
         self._finish_keyframe(fid, run_ba)
 
     def _finish_keyframe(self, fid: int, run_ba: bool) -> None:

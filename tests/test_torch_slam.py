@@ -210,20 +210,19 @@ def test_keyframe_store_full():
     assert ate_t < 0.05 and abs(ate_t - ate_j) <= 0.01
 
 
-@pytest.mark.parametrize("what", ["mono", "imu", "vocabulary", "pyramid",
-                                  "batch"])
+@pytest.mark.parametrize("what", ["imu", "vocabulary", "pyramid"])
 def test_unported_paths_raise(what):
     """What is not ported raises and names its ROADMAP item.  A
     vocabulary is accepted now; behind it the IMU rotation edges of the
-    loop pose graph are what still raises."""
+    loop pose graph are what still raises.  Frames without depth and
+    batched dispatch run (tests/test_torch_mono.py,
+    tests/test_torch_batch.py)."""
     _, dt = datasets(n_frames=2)
     fr = next(iter(dt))
     cfg = dict(CFG)
     kw = {}
     if what == "pyramid":
         cfg["n_levels"] = 2
-    elif what == "batch":
-        cfg["dispatch_batch"] = 4
     elif what == "vocabulary":
         kw["vocabulary"] = convert.vocabulary_from_numpy(
             np.zeros((3, 8), np.uint32), np.ones(2, np.float32), 2, 1,
@@ -231,9 +230,7 @@ def test_unported_paths_raise(what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         slam = KeyframeSLAM(dt.camera, SLAMConfig(**cfg), device="cpu",
                             **kw)
-        if what == "mono":
-            fr.depth = None
-        elif what == "imu":
+        if what == "imu":
             fr.imu = np.zeros((5, 7), np.float32)
         elif what == "vocabulary":
             slam.loop_closer.close(
@@ -272,36 +269,105 @@ def test_needs_a_card_unless_cpu():
         KeyframeSLAM(dt.camera, SLAMConfig(**CFG))
 
 
-def reference_ate_full_width(n_frames: int = 64) -> dict:
+FULL_SEQUENCE = dict(n_frames=192, n_points=1200, width=640, height=480,
+                     motion="ring_out", depth=True, texture=True, radius=14.0,
+                     world_extent=8.0, laps=1, noise=0.01)
+FULL_CFG = dict(max_kps=512, fast_threshold=0.08, local_map_size=2048,
+                ba_points=1024, ba_window=8, ba_iters=6, ba_obs_per_point=8,
+                kf_max_gap=8, cap_frames=64, cap_points=16384, cap_obs=65536,
+                dispatch_batch=1)
+# chip_smoke.py's monocular run: 48 depth-free frames of the line motion
+# over 3000 untextured points
+MONO_SEQUENCE = dict(n_frames=48, n_points=3000, width=640, height=480,
+                     motion="line", depth=False, texture=False, noise=0.01)
+# the JAX package's RANSAC draws of that run, for replay in the port
+MONO_DRAWS = "tests/data/mono_draws.npz"
+
+
+def reference_run(seq: dict, cfg: dict, n_frames: int, batched: bool,
+                  with_scale: bool) -> dict:
     """The JAX package's KeyframeSLAM over the first ``n_frames`` frames
-    of chip_smoke.py's full-width sequence and configuration (480 x 640
-    ring_out, bench.py:136-145, one frame per call): the reference ATE
-    that chip_smoke.py's gate is built from.  Runs on the CPU in about
-    a minute and a half."""
-    seq = dict(n_frames=192, n_points=1200, width=640, height=480,
-               motion="ring_out", depth=True, texture=True, radius=14.0,
-               world_extent=8.0, laps=1, noise=0.01)
-    cfg = dict(max_kps=512, fast_threshold=0.08, local_map_size=2048,
-               ba_points=1024, ba_window=8, ba_iters=6, ba_obs_per_point=8,
-               kf_max_gap=8, cap_frames=64, cap_points=16384, cap_obs=65536,
-               dispatch_batch=1)
+    of ``seq`` under ``cfg``, one frame a ``track`` call or through
+    ``track_batch``: ATE (with scale alignment for depth-free runs), RPE,
+    keyframes, tracked frames and the first frame with a map."""
     ds = JData(**seq)
     ds.open("synth://")
     frames = [ds.grab_frame() for _ in range(n_frames)]
     js = JSLAM(ds.camera, JConfig(**cfg))
-    t, gt = run(js, frames)
-    m = j_eval(t, js.positions(), t, gt, with_scale=False)
+    if batched:
+        js.track_batch(frames)
+    else:
+        run(js, frames)
+    t = np.asarray([fr.timestamp for fr in frames])
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    m = j_eval(t, js.positions(), t, gt, with_scale=with_scale)
     return dict(frames=n_frames, ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
                 keyframes=js._n_frames_host,
                 tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
+                            for s in js.stats),
+                first_mapped=next((i for i, s in enumerate(js.stats)
+                                   if s["n_kf"] > 0), None))
+
+
+def record_mono_draws(path: str = MONO_DRAWS) -> dict:
+    """The JAX package's run of ``--reference-ate-mono`` with its RANSAC
+    draws recorded, in the order the run takes them, into ``path``:
+    ``kind`` (0 a tracked frame's (256, 4) PnP draw, 1 the two-view
+    bootstrap's pair), ``pnp`` (n, 256, 4), ``two_view_e`` (m, 256, 8)
+    and ``two_view_h`` (m, 256, 4) (the halves of the key the bootstrap
+    splits), and the run's inlier count per frame."""
+    ds = JData(**MONO_SEQUENCE)
+    ds.open("synth://")
+    js = JSLAM(ds.camera, JConfig(**FULL_CFG))
+    drawn = []
+    next_key = js._next_key
+
+    def recorded_key():
+        drawn.append((js.initialized, next_key()))
+        return drawn[-1][1]
+
+    js._next_key = recorded_key
+    t, gt = run(js, ds)
+    pairs = [jax.random.split(k) for had_map, k in drawn if not had_map]
+
+    def uniforms(keys, k):
+        return np.asarray([jax.random.uniform(key, (256, k)) for key in keys],
+                          np.float32)
+
+    np.savez_compressed(
+        path, kind=np.asarray([0 if m else 1 for m, _ in drawn], np.int8),
+        pnp=uniforms([k for m, k in drawn if m], 4),
+        two_view_e=uniforms([e for e, _ in pairs], 8),
+        two_view_h=uniforms([h for _, h in pairs], 4),
+        inliers=np.asarray([s["n_inliers"] for s in js.stats], np.int32))
+    m = j_eval(t, js.positions(), t, gt, with_scale=True)
+    return dict(path=path, draws=len(drawn), ate_m=m.ate_rmse,
+                tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
                             for s in js.stats))
+
+
+REFERENCE_RUNS = {
+    # chip_smoke.py's 64-frame cell (bench.py:136-145, one frame a call)
+    "--reference-ate": lambda: reference_run(
+        FULL_SEQUENCE, FULL_CFG, 64, batched=False, with_scale=False),
+    # the full-system cell of bench.py:136-151: 192 frames, 8 a dispatch
+    "--reference-ate-batched": lambda: reference_run(
+        FULL_SEQUENCE, dict(FULL_CFG, dispatch_batch=8), 192, batched=True,
+        with_scale=False),
+    # the monocular run, ATE after scale alignment
+    "--reference-ate-mono": lambda: reference_run(
+        MONO_SEQUENCE, FULL_CFG, 48, batched=False, with_scale=True),
+    # the same run, its draws written to MONO_DRAWS
+    "--reference-draws-mono": record_mono_draws,
+}
 
 
 if __name__ == "__main__":
     import json
     import sys
 
-    if sys.argv[1:] != ["--reference-ate"]:
-        sys.exit("usage: python tests/test_torch_slam.py --reference-ate")
+    if len(sys.argv) != 2 or sys.argv[1] not in REFERENCE_RUNS:
+        sys.exit("usage: python tests/test_torch_slam.py "
+                 + " | ".join(REFERENCE_RUNS))
     jax.config.update("jax_default_device", jax.devices("cpu")[0])
-    print(json.dumps(reference_ate_full_width()))
+    print(json.dumps(REFERENCE_RUNS[sys.argv[1]]()))
