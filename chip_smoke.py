@@ -52,11 +52,20 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    version, its bound and the launch floor, B5, B6, B3, B4, B1 (the
    SLAM frame) and B2 at their extra shapes too; B1's bound counts the arc
    sums only at the starts that qualify on its input;
-6. hold B7 (BoW tree descent) against its plain version, word for
+6. pyramid: hold B1 bit for bit on the three level images of the first
+   frame's pyramid (480x640, 384x512, 307x410: 410 is not a multiple of
+   4) and B2 bit for bit at each level's keypoint budget; drive
+   ``KeyframeSLAM`` with ``n_levels`` 3, ``pyramid_scale`` 1.25 over the
+   64 frames, launch counters around it: B1 and B2 three times a frame,
+   B4, B5 and B6 launched, >= 90% tracked, >= 3 keyframes, the ATE within
+   ``max(0.05, 2 ref + 0.01)`` of the JAX package's run; then warm runs
+   in turns (kernels, plain, kernels), the kernel runs repeating the ATE
+   bit for bit (ms/frame, split by timer section);
+7. hold B7 (BoW tree descent) against its plain version, word for
    word, at the loop path's shape (N = 384 descriptors, k = 6, L = 2)
    and at k = 8, L = 4 (4681 nodes; N = 512, and an odd N with invalid
    rows), on vocabularies trained here from seeded random descriptors;
-7. batched dispatch: drive ``KeyframeSLAM.track_batch`` over all 192
+8. batched dispatch: drive ``KeyframeSLAM.track_batch`` over all 192
    frames of that sequence with ``dispatch_batch`` 8 (the reference's
    full-system cell, bench.py:136-151), its K-frame body replayed as one
    CUDA graph; launch counters around the run (the graph's captured
@@ -73,7 +82,7 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    in turns (sequential, batched, batched, sequential: ms/frame,
    frames/s, split by timer section) and the device busy share of each
    over 24 warm frames;
-8. monocular: ``KeyframeSLAM`` over 48 depth-free frames of the ``line``
+9. monocular: ``KeyframeSLAM`` over 48 depth-free frames of the ``line``
    motion at 480 x 640 over 3000 untextured points (same configuration,
    one frame a call) with the JAX package's RANSAC draws of its
    reference run replayed (``tests/data/mono_draws.npz``), launch
@@ -84,18 +93,30 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    with the system's own draws and the textured 1200-point scene of the
    64-frame cell (a mono run's outcome turns on its draws, there in both
    packages);
-9. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
-   of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
-   frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
-   6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
-   ``ba_window`` 4, ``cap_frames`` 256, stock loop-closer settings),
-   frames rendered one at a time, launch counters around the run: B1,
-   B2, B4, B5, B6 and B7 all launched, >= 100 keyframes, no arena
-   overflow, >= 2 loop closures, ATE of the corrected trajectory under
-   1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
-   feed frames from the far side of the ring and require BoW
-   relocalization to bring the pose back through B7;
-10. print the slices' JSON lines (the probes and the extra shapes'
+10. visual-inertial: ``KeyframeSLAM`` over 64 frames of the ``line``
+    motion at 480 x 640 (1200 textured points, depth, IMU windows of 10
+    samples a frame, noise 0.01; the 64-frame configuration with
+    ``vi_min_factors`` 6, ``kf_min_gap`` 2, ``kf_max_gap`` 6), launch
+    counters around it and around each VI LM call: VI initialized,
+    |gravity| within 0.2 of 9.81 and its cosine to the true direction
+    above 0.96, one IMU factor and one loop edge per keyframe pair (at
+    least keyframes - 2), at least one VI local BA with B5 and B6
+    launched inside it, the ATE within ``max(0.05, 2 ref + 0.01)`` of
+    the JAX package's run, the same ATE bit for bit in a second run;
+    ms/frame, ``slam/local_ba`` and its share of the wall, the last VI
+    LM's cost history;
+11. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
+    of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
+    frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
+    6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
+    ``ba_window`` 4, ``cap_frames`` 256, stock loop-closer settings),
+    frames rendered one at a time, launch counters around the run: B1,
+    B2, B4, B5, B6 and B7 all launched, >= 100 keyframes, no arena
+    overflow, >= 2 loop closures, ATE of the corrected trajectory under
+    1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
+    feed frames from the far side of the ring and require BoW
+    relocalization to bring the pose back through B7;
+12. print the slices' JSON lines (the probes and the extra shapes'
     times among them), the ``kernels`` JSON line, then the device JSON
     as the last line.
 
@@ -119,12 +140,15 @@ import numpy as np
 import torch
 
 from gslam_tpu_torch.core.camera import pinhole_unproject
+from gslam_tpu_torch.core.imu import preintegrate_full
+from gslam_tpu_torch.core.se3 import se3_apply
 from gslam_tpu_torch.estimation.pnp import (
     _p3p_grunert, pnp_reproj_error, refine_pose_gn,
 )
 from gslam_tpu_torch.estimation.ransac import run_ransac
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
+from gslam_tpu_torch.models import keyframe_slam
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
 from gslam_tpu_torch.models.keyframe_slam import (
     BatchGraph, KeyframeSLAM, SLAMConfig, tensor_leaves,
@@ -136,6 +160,7 @@ from gslam_tpu_torch.ops.matching import (
     gate_squared, hamming_top2, hamming_top2_gated, match_descriptors,
 )
 from gslam_tpu_torch.opt import ba
+from gslam_tpu_torch.opt.vi import ViProblem, stack_factors
 from gslam_tpu_torch.utils.platform import card_name_and_power_limit
 
 H, W, M, K, B = 480, 640, 2048, 512, 256
@@ -192,6 +217,31 @@ ATE_GATE_MONO = max(0.05, 2.0 * REF_ATE_MONO + 0.01)
 # scaled ATE of a mono run turns on its draws (0.12 to 0.70 m over the
 # port's seeds, 0.18 to 0.36 m over the JAX package's; PERF.md)
 MONO_DRAWS = Path(__file__).resolve().parent / "tests/data/mono_draws.npz"
+
+# the 64-frame cell with pyramid extraction: three levels at scale 1.25,
+# so B1 and B2 run once per level, at 480x640, 384x512 and 307x410 (410
+# is not a multiple of 4: B1's 4-byte loads), B2 at the level budgets
+PYRAMID_CFG = dict(SLAM_CFG, n_levels=3, pyramid_scale=1.25)
+# ATE (m) of the JAX package's run of the same 64 frames with the same
+# configuration, computed on a CPU by ``python tests/test_torch_slam.py
+# --reference-ate-pyramid``; an accuracy figure, not a speed figure
+REF_ATE_PYRAMID = 0.09382911026477814
+ATE_GATE_PYRAMID = max(0.05, 2.0 * REF_ATE_PYRAMID + 0.01)
+
+# the visual-inertial run: 64 frames of the line motion at 480x640 with
+# ground-truth IMU windows (10 samples a frame), SLAM_CFG with the VI
+# settings of tests/test_slam_e2e.py:465-466; local BA turns into the
+# joint VI LM (B5 per iteration, B6 per cost) once gravity is aligned
+VI_SEQUENCE = dict(n_frames=64, n_points=1200, width=640, height=480,
+                   motion="line", depth=True, texture=True, imu=True,
+                   noise=0.01)
+VI_CFG = dict(SLAM_CFG, vi_min_factors=6, kf_min_gap=2, kf_max_gap=6)
+# ATE (m) of the JAX package's run of the same frames (``python
+# tests/test_torch_slam.py --reference-ate-vi``, CPU); an accuracy
+# figure, not a speed figure
+REF_ATE_VI = 0.015885187312960625
+ATE_GATE_VI = max(0.05, 2.0 * REF_ATE_VI + 0.01)
+GRAVITY_TRUE = np.asarray([0.0, 0.0, -9.81])
 
 # the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
 # package's own loop-closure configuration), stock loop-closer settings
@@ -594,6 +644,87 @@ def ba_case(C, P, O, seed=0, window=None, pads=False):
             weight.astype(np.float32))
 
 
+def vi_case(device=DEVICE, seed=0, pose_noise=0.05, vel_noise=0.2,
+            tilt_deg=0.0):
+    """The visual-inertial window of tests/test_vi.py, in numpy and the
+    port: 6 keyframes 0.4 s apart on a climbing circle (radius 2 m, 0.8
+    rad/s, yawing with the motion), exact IMU samples at 200 Hz
+    preintegrated by the port, 64 landmarks seen by every keyframe in
+    front of it (weight 1e4), poses (but keyframe 0, the gauge) and
+    velocities with noise of ``pose_noise`` and ``vel_noise``, gravity
+    tilted by ``tilt_deg`` about y (that file's gravity-refinement case:
+    0.01, 0.1, 5).  Returns (ViProblem on ``device``, true poses, true
+    velocities)."""
+    C, P, dt_kf, hz = 6, 64, 0.4, 200.0
+    w, r = 0.8, 2.0
+    g_w = np.array([0.0, 0.0, -9.81])
+
+    def state(t):
+        p = np.stack([r * np.cos(w * t), r * np.sin(w * t), 0.3 * t], -1)
+        v = np.stack([-r * w * np.sin(w * t), r * w * np.cos(w * t),
+                      0.3 * np.ones_like(t)], -1)
+        a = np.stack([-r * w * w * np.cos(w * t),
+                      -r * w * w * np.sin(w * t), np.zeros_like(t)], -1)
+        return p, v, a
+
+    def R_wb(t):
+        c, s = np.cos(w * t), np.sin(w * t)
+        return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+    rng = np.random.default_rng(seed)
+    times = np.arange(C) * dt_kf
+    poses = np.zeros((C, 7), np.float32)
+    vels = np.zeros((C, 3), np.float32)
+    for i, t in enumerate(times):
+        p, v, _ = state(np.asarray(t))
+        R = R_wb(t)
+        poses[i, :3] = -R.T @ p
+        poses[i, 3:] = [np.cos(-0.5 * w * t), 0.0, 0.0, np.sin(-0.5 * w * t)]
+        vels[i] = v
+    facs = []
+    for i in range(C - 1):
+        ts = np.arange(times[i], times[i + 1] + 0.5 / hz, 1.0 / hz)
+        _, _, a_w = state(ts)
+        smp = np.zeros((len(ts), 7), np.float32)
+        smp[:, 0] = ts
+        smp[:, 1:4] = np.einsum("mji,mj->mi", np.stack([R_wb(t) for t in ts]),
+                                a_w - g_w)
+        smp[:, 6] = w
+        facs.append(preintegrate_full(torch.as_tensor(smp, device=device),
+                                      gyro_noise=1e-3, accel_noise=1e-2))
+    X = np.stack([rng.uniform(-4, 4, P), rng.uniform(-4, 4, P),
+                  rng.uniform(2, 6, P)], -1).astype(np.float32)
+    pc = se3_apply(torch.as_tensor(poses)[None],
+                   torch.as_tensor(X)[:, None]).numpy()        # (P, C, 3)
+    ok = pc[..., 2] > 0.3
+    uv = (pc[..., :2] / np.maximum(pc[..., 2], 0.3)[..., None]).astype(
+        np.float32)
+    noisy = poses.copy()
+    noisy[1:, :3] += rng.normal(0, pose_noise, (C - 1, 3))
+    vel0 = vels + rng.normal(0, vel_noise, (C, 3))
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[0] = True
+    X0 = X + rng.normal(0, 0.02, X.shape).astype(np.float32)
+    fields = (noisy, cam_fixed, X0, np.zeros(P, bool),
+              np.tile(np.arange(C, dtype=np.int32), (P, 1)), uv, ok,
+              np.full((P, C), 1e4, np.float32))
+    vision = ba.BundleProblem(*(torch.as_tensor(x, device=device)
+                                for x in fields))
+    dev = vision.cam_pose.device
+    prob = ViProblem(
+        vision=vision, vel=torch.as_tensor(vel0, dtype=torch.float32,
+                                           device=dev),
+        pair_i=torch.arange(C - 1, dtype=torch.int32, device=dev),
+        pair_j=torch.arange(1, C, dtype=torch.int32, device=dev),
+        pair_valid=torch.ones(C - 1, dtype=torch.bool, device=dev),
+        imu=stack_factors(facs), gravity_w=torch.as_tensor(
+            9.81 * np.array([np.sin(np.deg2rad(tilt_deg)), 0.0,
+                             -np.cos(np.deg2rad(tilt_deg))]),
+            dtype=torch.float32, device=dev),
+        bias_g=torch.zeros(3, device=dev), bias_a=torch.zeros(3, device=dev))
+    return prob, poses, vels
+
+
 def without_pad_indices(fields):
     """``fields`` with the camera index of pad slots (outside [0, C))
     set to 0, which the plain version can index."""
@@ -768,11 +899,11 @@ def phase_check(inputs):
     return rec
 
 
-def brief_inputs(img, n_kps):
+def brief_inputs(img, n_kps, threshold=THRESH):
     """B2's inputs on ``img`` as ``extract_features`` forms them (the
     plain detector): the blurred image, the top ``n_kps`` keypoints,
     the cosines and sines of their angles, and their validity."""
-    nms, raw = fastnms.fast_nms_plain(img, THRESH)
+    nms, raw = fastnms.fast_nms_plain(img, threshold)
     uv, _, kvalid, _ = frontend.select_keypoints(nms, max_kps=n_kps,
                                                  raw_score=raw)
     angle = frontend.compute_orientations(img, uv)
@@ -1190,9 +1321,10 @@ def load_frames():
     return ds.camera, frames
 
 
-def run_slam(camera, frames, use_kernels=True, seed=0):
-    """A fresh KeyframeSLAM over ``frames``; (slam, seconds)."""
-    slam = KeyframeSLAM(camera, SLAMConfig(**SLAM_CFG,
+def run_slam(camera, frames, use_kernels=True, seed=0, cfg=None):
+    """A fresh KeyframeSLAM (``cfg``, by default SLAM_CFG) over
+    ``frames``; (slam, seconds)."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**(cfg or SLAM_CFG),
                                            use_kernels=use_kernels,
                                            seed=seed), device=DEVICE)
     torch.cuda.synchronize()
@@ -1253,46 +1385,64 @@ def phase_slam(camera, frames):
                           rpe_m=m.rpe_rmse, first_run_s=secs)
 
 
+# timer sections that run inside another (not counted again in "rest")
+NESTED_SECTIONS = ("loop_gba", "vi_local_ba")
+
+
 def split_ms(slam, n):
-    """Wall ms per frame of each timer section, and the rest (host)."""
-    st = slam.timer.stats()
-    out = {k.split("/")[1]: v["total"] * 1e3 / n for k, v in st.items()}
-    return out
+    """Wall ms per frame of each timer section."""
+    return {k.split("/")[1]: v["total"] * 1e3 / n
+            for k, v in slam.timer.stats().items()}
+
+
+def rest_ms(ms_per_frame, split):
+    """The host glue outside every top-level timer section."""
+    return ms_per_frame - sum(v for k, v in split.items()
+                              if k not in NESTED_SECTIONS)
+
+
+def slam_turns(camera, frames, cfg, first_ate, what):
+    """Warm runs of ``cfg`` over ``frames`` in turns (kernels, plain,
+    kernels): ms/frame and timer split of each; the kernel runs must
+    repeat ``first_ate`` bit for bit."""
+    n = len(frames)
+    runs = {}
+    for label, uk in (("kernels", True), ("plain", False),
+                      ("kernels2", True)):
+        slam, secs = run_slam(camera, frames, use_kernels=uk, cfg=cfg)
+        ms, split = secs * 1e3 / n, split_ms(slam, n)
+        ate = slam_metrics(slam, frames).ate_rmse
+        runs[label] = dict(ms_per_frame=ms, split_ms_per_frame=split,
+                           ate_m=ate)
+        if uk and ate != first_ate:
+            raise AssertionError(f"{what} {label}: ATE {ate!r} m differs "
+                                 f"from the first run's {first_ate!r} m")
+        log(f"{what} {label}: {ms:.3f} ms/frame ({n / secs:.2f} frames/s), "
+            f"ATE {ate!r} m; split ms/frame: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; rest (host glue) {rest_ms(ms, split):.3f}")
+    return runs
 
 
 def phase_slam_timing(camera, frames, first_ate):
     """Warm runs in turns (kernels, plain, kernels) and a profile; the
     runs with the kernels must repeat the first run's ATE bit for bit
     (no float atomics anywhere on the path)."""
-    n = len(frames)
-    runs = {}
-    for label, uk in (("kernels", True), ("plain", False),
-                      ("kernels2", True)):
-        slam, secs = run_slam(camera, frames, use_kernels=uk)
-        runs[label] = (secs * 1e3 / n, split_ms(slam, n))
-        ate = slam_metrics(slam, frames).ate_rmse
-        if uk and ate != first_ate:
-            raise AssertionError(f"SLAM {label}: ATE {ate!r} m differs from "
-                                 f"the first run's {first_ate!r} m")
-        log(f"SLAM {label}: ATE {ate!r} m")
-        log(f"SLAM {label}: {secs * 1e3 / n:.3f} ms/frame "
-            f"({n / secs:.2f} frames/s); split ms/frame: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in runs[label][1].items())
-            + f"; rest (host glue) "
-              f"{secs * 1e3 / n - sum(runs[label][1].values()):.3f}")
+    runs = slam_turns(camera, frames, SLAM_CFG, first_ate, "SLAM")
     # device busy share over the first 24 frames of a fresh run (the
     # bootstrap keyframe, 23 tracked frames, two keyframes with BA)
-    n_prof = min(24, n)
+    n_prof = min(24, len(frames))
     slam = KeyframeSLAM(camera, SLAMConfig(**SLAM_CFG), device=DEVICE)
     it = iter(frames[:n_prof])
     prof = device_profile(lambda: slam.track(next(it)), n_prof,
                           "KeyframeSLAM")
-    best = min(runs["kernels"][0], runs["kernels2"][0])
-    return dict(ms_per_frame=best, frames_per_s=1e3 / best,
-                ms_per_frame_runs=[runs["kernels"][0], runs["kernels2"][0]],
-                plain_ms_per_frame=runs["plain"][0],
-                split_ms_per_frame=runs["kernels"][1],
-                plain_split_ms_per_frame=runs["plain"][1], profile=prof)
+    ms = [runs["kernels"]["ms_per_frame"], runs["kernels2"]["ms_per_frame"]]
+    return dict(ms_per_frame=min(ms), frames_per_s=1e3 / min(ms),
+                ms_per_frame_runs=ms,
+                plain_ms_per_frame=runs["plain"]["ms_per_frame"],
+                split_ms_per_frame=runs["kernels"]["split_ms_per_frame"],
+                plain_split_ms_per_frame=runs["plain"]["split_ms_per_frame"],
+                profile=prof)
 
 
 def batched_launches(slam, counted):
@@ -1489,7 +1639,7 @@ def phase_batch_timing(camera, frames):
             f"{cap_s:.3f} s of graph capture); ATE {runs[-1]['ate_m']:.6f} m, "
             f"{slam._n_frames_host} keyframes; split ms/frame: "
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-            + f"; rest (host glue) {ms - sum(split.values()):.3f}")
+            + f"; rest (host glue) {rest_ms(ms, split):.3f}")
     prof = {"sequential": warm_profile(camera, frames, False),
             "batched": warm_profile(camera, frames, True)}
     return dict(runs=runs, profile=prof)
@@ -1602,6 +1752,176 @@ def phase_mono():
             f"{r['ate_scaled_m']!r} m")
     return launched, dict(frames=n, **rec, ms_per_frame=secs * 1e3 / n,
                           own_draws=own, textured=textured)
+
+
+def phase_check_pyramid(frame):
+    """B1 bit for bit on the three level images of the first frame's
+    pyramid (as extract_features_pyramid forms them on the card), and B2
+    bit for bit at each level's keypoint budget; the records for
+    timing."""
+    img = torch.as_tensor(frame.image, device=DEVICE)
+    levels = frontend.image_pyramid(img, PYRAMID_CFG["n_levels"],
+                                    PYRAMID_CFG["pyramid_scale"])
+    ks = frontend.pyramid_budgets([lvl.shape for lvl in levels],
+                                  PYRAMID_CFG["max_kps"])
+    thr = PYRAMID_CFG["fast_threshold"]
+    rec = {}
+    for lev, (lvl, k) in enumerate(zip(levels, ks)):
+        h, w = lvl.shape
+        rec[f"pyramid_fast_nms_{h}x{w}"] = check_fast_nms(
+            lvl, thr, f"pyramid level {lev}, {h}x{w}")
+        blur, uv, ca, sa, kvalid = brief_inputs(lvl, int(k), thr)
+        args = (blur, uv, ca, sa)
+        same = torch.equal(brief.brief(*args),
+                           frontend.brief_from_rotation(*args))
+        log(f"B2 brief (pyramid level {lev}, {h}x{w}): K = {k} "
+            f"({int(kvalid.sum())} valid), bit for bit {same}")
+        if not same:
+            raise AssertionError(f"BRIEF kernel is not bit-equal at pyramid "
+                                 f"level {lev} (K={k})")
+        assert_same_bits(lambda: (brief.brief(*args),),
+                         f"B2 brief (pyramid level {lev})")
+        rec[f"pyramid_brief_{h}x{w}_K{k}"] = dict(max_abs_err=0.0,
+                                                  args=args, K=int(k))
+    return rec
+
+
+def phase_pyramid(camera, frames):
+    """KeyframeSLAM with the three-level pyramid over the 64 frames, one
+    a call, counters around it: B1 and B2 three times a frame, B4 once a
+    tracked frame, B5 and B6 in local BA; tracked-frame, keyframe and
+    ATE gates; then warm runs in turns (kernels, plain, kernels), the
+    kernel runs repeating the first run's ATE bit for bit."""
+    n = len(frames)
+    reset_counts()
+    slam, secs = run_slam(camera, frames, cfg=PYRAMID_CFG)
+    launched = counts()
+    tracked = tracked_frames(slam)
+    n_kf = slam._n_frames_host
+    m = slam_metrics(slam, frames)
+    per_frame = {k: v / n for k, v in launched.items()}
+    log(f"pyramid path launches over {n} frames: {launched} ({secs:.2f} s, "
+        f"first run); per frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items()))
+    log(f"pyramid SLAM: {tracked}/{n} frames tracked, {n_kf} keyframes, "
+        f"ATE {m.ate_rmse!r} m (gate {ATE_GATE_PYRAMID:.4f} m; JAX "
+        f"reference {REF_ATE_PYRAMID:.6f} m), RPE {m.rpe_rmse:.6f} m; "
+        f"features {[st['n_features'] for st in slam.stats[:8]]}...")
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the pyramid path never ran: "
+                             f"{missing}")
+    levels = PYRAMID_CFG["n_levels"]
+    if launched["fast_nms"] != levels * n or launched["brief"] != levels * n:
+        raise AssertionError(f"B1 / B2 not {levels} launches a frame: "
+                             f"{launched}")
+    pos = slam.positions()
+    if not np.isfinite(pos).all() or pos.shape != (n, 3):
+        raise AssertionError("pyramid trajectory not finite or of the wrong "
+                             "shape")
+    if tracked < 0.9 * n or n_kf < 3:
+        raise AssertionError(f"pyramid: {tracked} of {n} frames tracked, "
+                             f"{n_kf} keyframes")
+    if not m.ate_rmse <= ATE_GATE_PYRAMID:
+        raise AssertionError(f"pyramid ATE {m.ate_rmse} m above "
+                             f"{ATE_GATE_PYRAMID} m")
+    runs = slam_turns(camera, frames, PYRAMID_CFG, m.ate_rmse, "pyramid")
+    return launched, dict(
+        frames=n, tracked=tracked, keyframes=n_kf, ate_m=m.ate_rmse,
+        rpe_m=m.rpe_rmse, first_run_s=secs, launches_per_frame=per_frame,
+        runs=runs)
+
+
+def run_vi(camera, frames, inside):
+    """A KeyframeSLAM run of VI_CFG over ``frames`` with the B5 / B6
+    launches of each VI LM call appended to ``inside``; (slam,
+    seconds)."""
+    solve = keyframe_slam.vi_bundle_adjust
+
+    def counted(*a, **kw):
+        before = counts()
+        out = solve(*a, **kw)
+        after = counts()
+        inside.append({k: after[k] - before[k] for k in ("schur",
+                                                         "ba_cost")})
+        return out
+
+    keyframe_slam.vi_bundle_adjust = counted
+    try:
+        return run_slam(camera, frames, cfg=VI_CFG)
+    finally:
+        keyframe_slam.vi_bundle_adjust = solve
+
+
+def phase_vi():
+    """Visual-inertial KeyframeSLAM over 64 VGA frames with IMU windows,
+    counters around it: VI initialized, gravity magnitude and direction,
+    one factor and one loop edge per keyframe pair, ATE gate, B5 and B6
+    launched inside the VI LM; a second run repeats the ATE bit for
+    bit."""
+    camera, frames, render_s = render(VI_SEQUENCE)
+    n = len(frames)
+    inside = []
+    reset_counts()
+    slam, secs = run_vi(camera, frames, inside)
+    launched = counts()
+    m = slam_metrics(slam, frames)
+    tracked = tracked_frames(slam)
+    n_kf = slam._n_frames_host
+    g = None if slam.gravity_w is None else np.asarray(slam.gravity_w,
+                                                      np.float64)
+    g_norm = float("nan") if g is None else float(np.linalg.norm(g))
+    cos = float("nan") if g is None else float(g @ GRAVITY_TRUE) / (
+        g_norm * 9.81)
+    st = slam.timer.stats()
+    split = split_ms(slam, n)
+    ms = secs * 1e3 / n
+    costs = None if slam.vi_costs is None else slam.vi_costs.tolist()
+    log(f"VI path launches over {n} frames: {launched} ({secs:.2f} s, "
+        f"{render_s:.1f} s rendering); B5 / B6 launches inside each VI LM "
+        f"call: {inside}")
+    log(f"VI SLAM: {tracked}/{n} frames tracked, {n_kf} keyframes, "
+        f"vi_ready {slam.vi_ready}, {len(slam.imu_factors)} IMU factors, "
+        f"{len(slam.imu_edges)} loop edges, gravity {g} (|g| {g_norm:.6f}, "
+        f"cos to true {cos:.6f}), ATE {m.ate_rmse!r} m (gate "
+        f"{ATE_GATE_VI:.4f} m; JAX reference {REF_ATE_VI:.6f} m), RPE "
+        f"{m.rpe_rmse:.6f} m")
+    lba = st.get("slam/local_ba", {}).get("total", 0.0)
+    log(f"VI SLAM: {ms:.3f} ms/frame ({n / secs:.2f} frames/s, first run); "
+        f"slam/local_ba {lba:.3f} s ({100 * lba / secs:.1f}% of the wall, "
+        f"{st.get('slam/local_ba', {}).get('count', 0)} runs, "
+        f"{st.get('slam/vi_local_ba', {}).get('count', 0)} of them VI); "
+        f"split ms/frame: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in split.items())
+        + f"; rest (host glue) {rest_ms(ms, split):.3f}; the last VI LM's "
+          f"costs {costs}")
+    if not slam.vi_ready or g is None:
+        raise AssertionError("VI: never initialized")
+    if not (abs(g_norm - 9.81) < 0.2 and cos > 0.96):
+        raise AssertionError(f"VI gravity {g}: |g| {g_norm}, cos {cos}")
+    if not len(slam.imu_factors) == len(slam.imu_edges) >= n_kf - 2:
+        raise AssertionError(f"VI: {len(slam.imu_factors)} factors, "
+                             f"{len(slam.imu_edges)} edges, {n_kf} keyframes")
+    if not any(c["schur"] >= 1 and c["ba_cost"] >= 1 for c in inside):
+        raise AssertionError(f"no VI LM ran with B5 and B6: {inside}")
+    if not (np.isfinite(slam.positions()).all()
+            and m.ate_rmse <= ATE_GATE_VI):
+        raise AssertionError(f"VI ATE {m.ate_rmse} m above {ATE_GATE_VI} m")
+    slam2, secs2 = run_vi(camera, frames, [])
+    ate2 = slam_metrics(slam2, frames).ate_rmse
+    log(f"VI SLAM second run: {secs2 * 1e3 / n:.3f} ms/frame, ATE {ate2!r} "
+        f"m")
+    if ate2 != m.ate_rmse:
+        raise AssertionError(f"VI second run: ATE {ate2!r} m differs from "
+                             f"{m.ate_rmse!r} m")
+    return launched, dict(
+        frames=n, tracked=tracked, keyframes=n_kf, vi_ready=slam.vi_ready,
+        imu_factors=len(slam.imu_factors), imu_edges=len(slam.imu_edges),
+        gravity_w=g.tolist(), gravity_norm=g_norm, gravity_cos=cos,
+        ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+        ms_per_frame_runs=[ms, secs2 * 1e3 / n], split_ms_per_frame=split,
+        local_ba_s=lba, local_ba_share=lba / secs,
+        vi_lm_launches=inside, last_vi_costs=costs)
 
 
 def schur_work(prob):
@@ -1805,8 +2125,7 @@ def phase_loop():
                                 with_scale=False)
     tracked = tracked_frames(slam)
     st = slam.timer.stats()
-    split = {k.split("/")[1]: v["total"] * 1e3 / n for k, v in st.items()}
-    top = sum(v for k, v in split.items() if k != "loop_gba")  # nested
+    split = split_ms(slam, n)
     log(f"loop run: {tracked}/{n} frames tracked, {n_kf} keyframes, "
         f"{n_pts} points, overflow {overflow}, closures {lc.closed}, "
         f"verifications {len(lc.verify_log)} "
@@ -1817,8 +2136,8 @@ def phase_loop():
     log(f"loop run: {track_s * 1e3 / n:.3f} ms/frame "
         f"({n / track_s:.2f} frames/s); split ms/frame: "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-        + f"; rest (host glue) {track_s * 1e3 / n - top:.3f}; seconds per "
-          f"closure {[round(x, 3) for x in closure_s]}")
+        + f"; rest (host glue) {rest_ms(track_s * 1e3 / n, split):.3f}; "
+          f"seconds per closure {[round(x, 3) for x in closure_s]}")
     if not np.isfinite(corrected).all() or corrected.shape != (n, 3):
         raise AssertionError("trajectory not finite or of the wrong shape")
     if n_kf < LOOP_MIN_KEYFRAMES or overflow or n_pts >= slam.cfg.cap_points:
@@ -1965,6 +2284,17 @@ def phase_extra_kernel_times(rec):
         entry, lambda: fastnms.fast_nms_raw(*entry["args"]),
         lambda: fastnms.fast_nms_plain(*entry["args"]),
         fast_work(*entry["args"]))
+    # B1 at the pyramid's level shapes, B2 at their budgets
+    for label, entry in rec.items():
+        a = entry.get("args")
+        if label.startswith("pyramid_fast_nms_"):
+            pairs[label] = (entry, lambda a=a: fastnms.fast_nms_raw(*a),
+                            lambda a=a: fastnms.fast_nms_plain(*a),
+                            fast_work(*a))
+        elif label.startswith("pyramid_brief_"):
+            pairs[label] = (entry, lambda a=a: brief.brief(*a),
+                            lambda a=a: frontend.brief_from_rotation(*a),
+                            brief_work(a[0], entry["K"]))
     out = {}
     for label, (entry, kfn, pfn, work) in pairs.items():
         out[label], ks = time_pair(kfn, pfn, work)
@@ -2022,6 +2352,9 @@ def main() -> int:
     slam_times = phase_slam_timing(camera, frames[:SLAM_FRAMES],
                                    slam_checks["ate_m"])
     t = phase("KeyframeSLAM timing", t)
+    rec.update(phase_check_pyramid(frames[0]))
+    launched_pyr, pyr_checks = phase_pyramid(camera, frames[:SLAM_FRAMES])
+    t = phase("pyramid main path", t)
     launched_batch, batch_checks = phase_batched(camera, frames)
     t = phase("track_batch main path", t)
     batch_checks["graph_vs_eager"] = phase_graph_vs_eager(camera, frames)
@@ -2030,6 +2363,8 @@ def main() -> int:
     del frames
     launched_mono, mono_checks = phase_mono()
     t = phase("mono main path", t)
+    launched_vi, vi_checks = phase_vi()
+    t = phase("visual-inertial main path", t)
     rec_v = phase_check_vocab()
     t = phase("check B7", t)
     launched_loop, loop_run = phase_loop()
@@ -2069,6 +2404,14 @@ def main() -> int:
                     "shape": [MONO_SEQUENCE["height"],
                               MONO_SEQUENCE["width"]],
                     **mono_checks, "launches": launched_mono}))
+    log(json.dumps({"slice": "keyframe_slam_pyramid",
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    "levels": PYRAMID_CFG["n_levels"],
+                    "scale": PYRAMID_CFG["pyramid_scale"], **pyr_checks,
+                    "launches": launched_pyr}))
+    log(json.dumps({"slice": "keyframe_slam_vi",
+                    "shape": [VI_SEQUENCE["height"], VI_SEQUENCE["width"]],
+                    **vi_checks, "launches": launched_vi}))
     log(json.dumps({"slice": "loop_closure",
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],

@@ -5,11 +5,11 @@ card.  The layout mirrors the JAX package so that each counterpart is
 easy to find:
 
 * :mod:`gslam_tpu_torch.core` — SO(3)/SE(3) on quaternion 7-vectors,
-  Sim(3) with exp / log, and the pinhole camera;
-* :mod:`gslam_tpu_torch.ops` — the ORB-style frontend, the Hamming
-  matchers (plain, projection-gated and word-gated) and the bag-of-words
-  vocabulary, with the detector, BRIEF sampler, both matchers and the
-  vocabulary tree descent as CUDA kernels in
+  Sim(3) with exp / log, the pinhole camera and IMU preintegration;
+* :mod:`gslam_tpu_torch.ops` — the ORB-style frontend (single-scale and
+  pyramid), the Hamming matchers (plain, projection-gated and word-gated)
+  and the bag-of-words vocabulary, with the detector, BRIEF sampler, both
+  matchers and the vocabulary tree descent as CUDA kernels in
   :mod:`gslam_tpu_torch.ops.cuda` (sources in ``csrc/``);
 * :mod:`gslam_tpu_torch.estimation` — batched RANSAC, P3P and DLT PnP,
   two-view geometry (essential, fundamental and homography matrices,
@@ -17,16 +17,19 @@ easy to find:
 * :mod:`gslam_tpu_torch.map` — the fixed-capacity map arena;
 * :mod:`gslam_tpu_torch.opt` — Schur-complement LM bundle adjustment
   (local and global), with the Schur reduction and the cost as CUDA
-  kernels, and the SE(3) / Sim(3) pose graph;
+  kernels, visual-inertial BA and initialization, and the SE(3) / Sim(3)
+  pose graph;
 * :mod:`gslam_tpu_torch.models` — the fused tracking step
-  ``track_forward``, ``KeyframeSLAM`` (RGB-D and monocular, one frame a
-  call or K a dispatch, the K-frame body one CUDA graph on the card) and
-  its ``LoopCloser`` (loop closure and relocalization);
+  ``track_forward``, ``KeyframeSLAM`` (RGB-D and monocular, with or
+  without IMU, one frame a call or K a dispatch, the K-frame body one
+  CUDA graph on the card) and its ``LoopCloser`` (loop closure and
+  relocalization);
 * :mod:`gslam_tpu_torch.datasets`, :mod:`gslam_tpu_torch.eval` — the
   synthetic sequences and ATE / RPE;
 * :mod:`gslam_tpu_torch.convert` — numpy <-> tensor conversion of the
-  map (slab, arena, BA problem, pose graph), vocabulary, camera,
-  features and matches, so that both packages compute on the same map.
+  map (slab, arena, BA and VI problems, IMU factors, pose graph),
+  vocabulary, camera, features and matches, so that both packages compute
+  on the same map.
 
 Public layouts follow the JAX package: pixel coordinates are ``(x, y)``,
 poses are ``[t(3), q(4, wxyz)]``, descriptors are ``(N, 8)`` 32-bit words

@@ -2,7 +2,8 @@
 
 The system has no weights; its state is the map (the local-map slab of
 the tracking step, the whole ``MapArena`` of the SLAM loop, a BA
-problem, a pose graph), the vocabulary and the camera.  These functions
+problem, a visual-inertial problem and its IMU factors, a pose graph),
+the vocabulary and the camera.  These functions
 turn the JAX package's arrays (as numpy) into this package's tensors and
 back, so that both compute on the same map; ``arena_from_numpy`` /
 ``arena_to_numpy`` are those of :mod:`gslam_tpu_torch.map.arena`,
@@ -19,6 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from gslam_tpu_torch.core.imu import ImuFactor
 from gslam_tpu_torch.map.arena import (  # noqa: F401  (the map's carriers)
     arena_from_numpy, arena_to_numpy,
 )
@@ -29,6 +31,7 @@ from gslam_tpu_torch.ops.vocab import (  # noqa: F401  (the tree's carriers)
 )
 from gslam_tpu_torch.opt.ba import BundleProblem
 from gslam_tpu_torch.opt.pose_graph import PoseGraph
+from gslam_tpu_torch.opt.vi import ViProblem
 from gslam_tpu_torch.utils.platform import require_device
 
 
@@ -116,3 +119,37 @@ def pose_graph_from_numpy(fields, device="cuda") -> PoseGraph:
         k: None if fields.get(k) is None else torch.from_numpy(
             np.array(fields[k], dtype=dtypes[k])).to(dev)
         for k in PoseGraph._fields})
+
+
+def _fields_of(fields, names) -> dict:
+    return dict(fields) if isinstance(fields, dict) else dict(zip(names,
+                                                                  fields))
+
+
+def imu_factor_from_numpy(fields, device="cuda") -> ImuFactor:
+    """A preintegrated IMU factor, or a stack of K of them, as numpy (an
+    ``ImuFactor``-shaped tuple or a dict of its field names) ->
+    :class:`~gslam_tpu_torch.core.imu.ImuFactor` of float32 tensors on
+    ``device``."""
+    dev = require_device(device)
+    fields = _fields_of(fields, ImuFactor._fields)
+    return ImuFactor(**{
+        k: torch.from_numpy(np.array(fields[k], dtype=np.float32)).to(dev)
+        for k in ImuFactor._fields})
+
+
+def vi_problem_from_numpy(fields, device="cuda") -> ViProblem:
+    """A visual-inertial problem as numpy (a ``ViProblem``-shaped tuple
+    or a dict of its field names, whose ``vision`` and ``imu`` are
+    converted by :func:`bundle_problem_from_numpy` and
+    :func:`imu_factor_from_numpy`) ->
+    :class:`~gslam_tpu_torch.opt.vi.ViProblem` on ``device``."""
+    dev = require_device(device)
+    fields = _fields_of(fields, ViProblem._fields)
+    dtypes = dict(vel=np.float32, pair_i=np.int32, pair_j=np.int32,
+                  pair_valid=bool, gravity_w=np.float32, bias_g=np.float32,
+                  bias_a=np.float32)
+    out = {k: torch.from_numpy(np.array(fields[k], dtype=t)).to(dev)
+           for k, t in dtypes.items()}
+    return ViProblem(vision=bundle_problem_from_numpy(fields["vision"], dev),
+                     imu=imu_factor_from_numpy(fields["imu"], dev), **out)

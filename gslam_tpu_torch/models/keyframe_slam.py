@@ -2,10 +2,11 @@
 bundle adjustment, loop closure, relocalization, map hygiene.
 
 Counterpart of ``gslam_tpu/models/keyframe_slam.py`` for frames with
-depth (RGB-D) and without (monocular), one frame per ``track`` call or K
-per ``track_batch`` dispatch:
+depth (RGB-D) and without (monocular), with or without IMU samples, one
+frame per ``track`` call or K per ``track_batch`` dispatch:
 
-  track:    extract (FAST + NMS (B1), BRIEF (B2)) -> covisibility slab ->
+  track:    extract (FAST + NMS (B1), BRIEF (B2); once per level of an
+            image pyramid with ``n_levels`` > 1) -> covisibility slab ->
             projection under the constant-velocity prediction -> gated
             Hamming matching (B4) -> PnP RANSAC + GN refine
   batch:    ``track_batch`` runs K frames of that chain against one slab
@@ -15,6 +16,15 @@ per ``track_batch`` dispatch:
             and hands that frame's frozen state to the keyframe or
             relocalization path.  On the card the K-frame body is one
             captured CUDA graph (:class:`BatchGraph`)
+  IMU:      a frame's samples are preintegrated (Forster factor) and
+            composed since the last keyframe; the gyro delta replaces the
+            rotation of the constant-velocity prediction; a keyframe emits
+            the composed factor (for VI BA) and a rotation-only edge (for
+            the loop pose graph); once enough factors exist, gravity,
+            velocities and (mono) scale are aligned
+            (``_maybe_vi_init``), and local BA becomes the joint
+            visual-inertial LM (:func:`~gslam_tpu_torch.opt.vi.
+            vi_bundle_adjust`, B5 / B6 as in local BA)
   bootstrap: RGB-D, the first keyframe with points from depth; mono,
             the two-view H / E initialization between the first two
             frames with enough matches
@@ -36,9 +46,8 @@ per ``track_batch`` dispatch:
 
 The map lives on the device in a :class:`~gslam_tpu_torch.map.arena.
 MapArena`; frame and keyframe decisions read host mirrors of its
-counters, so a tracked frame costs one device fetch.  Not ported yet,
-and raising ``NotImplementedError`` rather than skipped: frames with IMU
-samples and ``n_levels > 1`` (ROADMAP Queue A items 13 and 3).
+counters, so a tracked frame costs one device fetch (a keyframe with IMU
+factors one more, the factor's).
 """
 
 from __future__ import annotations
@@ -51,8 +60,12 @@ import numpy as np
 import torch
 
 from gslam_tpu_torch.core.camera import Camera
+from gslam_tpu_torch.core.imu import (
+    ImuFactor, compose_factors, identity_factor, preintegrate_full,
+)
 from gslam_tpu_torch.core.se3 import se3_apply, se3_inverse, se3_mul
 from gslam_tpu_torch.core.sim3 import sim3_from_se3
+from gslam_tpu_torch.core.so3 import quat_conj, quat_to_matrix
 from gslam_tpu_torch.datasets.base import FrameData
 from gslam_tpu_torch.estimation.epipolar import triangulate
 from gslam_tpu_torch.estimation.init2view import (
@@ -70,7 +83,9 @@ from gslam_tpu_torch.models.loop_closure import (
 )
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
 from gslam_tpu_torch.ops.cuda.matcher import match_hamming_gated
-from gslam_tpu_torch.ops.frontend import Features, extract_features
+from gslam_tpu_torch.ops.frontend import (
+    Features, extract_features, extract_features_pyramid,
+)
 from gslam_tpu_torch.ops.matching import (
     Matches, match_descriptors, match_descriptors_gated,
 )
@@ -78,6 +93,9 @@ from gslam_tpu_torch.ops.vocab import transform_sparse
 from gslam_tpu_torch.opt.ba import (
     build_problem_from_arena, bundle_adjust, resolve_ba_kernels,
     write_back_to_arena,
+)
+from gslam_tpu_torch.opt.vi import (
+    ViProblem, estimate_gravity_velocity, stack_factors, vi_bundle_adjust,
 )
 from gslam_tpu_torch.utils.platform import require_device
 from gslam_tpu_torch.utils.timer import Timer
@@ -94,14 +112,14 @@ class SLAMConfig:
     """The JAX package's ``SLAMConfig`` with ``use_pallas`` renamed
     ``use_kernels``: True routes B1, B2, B4, B5, B6 and B7 through the
     CUDA kernels (their plain versions on CPU tensors; B5 / B6 up to 32
-    cameras, the plain Schur path above).  The fields of the paths that
-    are not ported (pyramid scale, visual-inertial BA) and the JAX
-    package's dispatch-fusion switches, which select between equivalent
+    cameras, the plain Schur path above).  The JAX package's
+    dispatch-fusion switches, which select between equivalent
     computations, are left out."""
 
     max_kps: int = 512
     fast_threshold: float = 0.06
-    n_levels: int = 1              # >1: pyramid extraction (not ported)
+    n_levels: int = 1              # >1: pyramid extraction
+    pyramid_scale: float = 1.25
     use_kernels: bool = True
     local_map_size: int = 2048     # point slab handed to tracking
     ba_window: int = 8             # covisible KFs in local BA
@@ -132,12 +150,25 @@ class SLAMConfig:
     cull_min_ratio: float = 0.1
     hygiene_interval: int = 4      # KFs between refresh / KF-cull passes
     loop_global_ba_iters: int = 4  # post-loop global BA budget (0 = off)
+    # visual-inertial estimation (frames carrying IMU windows)
+    enable_vi_ba: bool = True      # joint VI local BA once initialized
+    vi_min_factors: int = 3        # inter-keyframe factors before VI init
+    vi_ba_iters: int = 8
+    imu_gyro_noise: float = 1e-3   # continuous-time noise densities
+    imu_accel_noise: float = 1e-2
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to gslam_tpu_torch yet (ROADMAP Queue A "
-        f"{item})")
+def _factor_to_numpy(f: ImuFactor) -> ImuFactor:
+    """A factor's fields as numpy arrays, in one fetch."""
+    flat = torch.cat([x.reshape(-1) for x in f]).cpu().numpy()
+    out, at = [], 0
+    for x in f:
+        out.append(flat[at:at + x.numel()].reshape(tuple(x.shape)))
+        at += x.numel()
+    return ImuFactor(*out)
+
+
+_PAD_FACTOR = ImuFactor(*(x.numpy() for x in identity_factor()))
 
 
 class BatchResult(NamedTuple):
@@ -263,8 +294,6 @@ class KeyframeSLAM:
         self.camera = camera
         self.cfg = config or SLAMConfig()
         c = self.cfg
-        if c.n_levels > 1:
-            raise _not_ported("pyramid extraction (n_levels > 1)", "item 3")
         self.timer = Timer()
         self.loop_closer: Optional[LoopCloser] = None
         if vocabulary is not None:
@@ -303,6 +332,19 @@ class KeyframeSLAM:
         self._prev_frame: Optional[FrameData] = None
         self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
         self.batch_accepted: List[int] = []  # frames each dispatch took
+        # VI state: the factor composed since the last keyframe, the
+        # inter-keyframe factors (numpy) for VI BA and rotation-only
+        # edges for the loop pose graph, velocities, gravity and biases
+        self._imu_acc: Optional[ImuFactor] = None
+        self.imu_edges: List[tuple] = []     # (kf_i, kf_j, dq (4,))
+        self.imu_factors: List[tuple] = []   # (kf_i, kf_j, ImuFactor)
+        self._imu_factor_idx: Dict[tuple, ImuFactor] = {}
+        self.kf_vel: Dict[int, np.ndarray] = {}   # kf id -> world velocity
+        self.gravity_w: Optional[np.ndarray] = None   # (3,) after VI init
+        self.vi_ready = False
+        self.bias_g = np.zeros(3, np.float32)
+        self.bias_a = np.zeros(3, np.float32)
+        self.vi_costs: Optional[torch.Tensor] = None  # last VI LM's costs
         # host mirrors of arena counters: n_frames is exact (a frame
         # insert takes slot n_frames), n_points refreshed at the hygiene
         # cadence and used for stats rows only
@@ -381,17 +423,20 @@ class KeyframeSLAM:
         """Track one frame; returns its cam->world pose (7,) on the
         device."""
         c = self.cfg
-        if frame.imu is not None and len(frame.imu) > 1:
-            raise _not_ported("visual-inertial tracking (IMU samples)",
-                              "item 13")
-        dev = self.device
-        img = torch.as_tensor(frame.image, device=dev)
+        img = torch.as_tensor(frame.image, device=self.device)
         with self.timer.section("slam/extract"):
-            feats = extract_features(img, max_kps=c.max_kps,
-                                     threshold=c.fast_threshold,
-                                     use_kernels=c.use_kernels)
+            if c.n_levels > 1:
+                feats = extract_features_pyramid(
+                    img, max_kps=c.max_kps, threshold=c.fast_threshold,
+                    n_levels=c.n_levels, scale=c.pyramid_scale,
+                    use_kernels=c.use_kernels)
+            else:
+                feats = extract_features(img, max_kps=c.max_kps,
+                                         threshold=c.fast_threshold,
+                                         use_kernels=c.use_kernels)
             self.timer.block(feats.desc)
         self._set_keypoint_samples(frame, img, feats)
+        imu_delta = self._preintegrate(frame)
 
         n_inliers = 0
         n_matches = 0
@@ -399,6 +444,12 @@ class KeyframeSLAM:
         if not self.initialized:
             self._initialize(frame, feats)
         else:
+            if imu_delta is not None:
+                # gyro-aided motion model: the rotation of T_cw(t) o
+                # T_wc(t-1) is conj(dq) when dq rotates body(t-1) ->
+                # body(t) (camera frame == IMU frame)
+                self.velocity = torch.cat([self.velocity[:3],
+                                           quat_conj(imu_delta.dq)])
             pred_cw = se3_mul(self.velocity, se3_inverse(self.pose_wc))
             pose_cw, n_matches, n_inliers, jump, n_features = \
                 self._track_local_map(feats, pred_cw)
@@ -412,6 +463,25 @@ class KeyframeSLAM:
             n_features = int(feats.count)
         self._record(frame, n_features, n_matches, n_inliers)
         return self.pose_wc
+
+    def _preintegrate(self, frame: FrameData) -> Optional[ImuFactor]:
+        """The frame's IMU window as a full preintegrated factor (None
+        without at least two samples), composed onto the factor since
+        the last keyframe.  Timestamps are rebased in float64 before the
+        float32 cast: absolute epochs (~1.4e9 s) have ~128 s of float32
+        resolution, which would collapse millisecond steps to 0."""
+        if frame.imu is None or len(frame.imu) <= 1:
+            return None
+        c = self.cfg
+        with self.timer.section("slam/imu"):
+            win = np.array(frame.imu, np.float64)
+            win[:, 0] -= win[0, 0]
+            delta = preintegrate_full(
+                torch.from_numpy(win.astype(np.float32)).to(self.device),
+                gyro_noise=c.imu_gyro_noise, accel_noise=c.imu_accel_noise)
+            self._imu_acc = delta if self._imu_acc is None \
+                else compose_factors(self._imu_acc, delta)
+        return delta
 
     def _set_keypoint_samples(self, frame: FrameData, img: torch.Tensor,
                               feats: Features) -> None:
@@ -517,6 +587,8 @@ class KeyframeSLAM:
         self.pose_wc = se3_inverse(tv.T_21)
         self.last_kf_id = kf1
         self.initialized = True
+        # the next inter-keyframe factor spans (kf1, next keyframe] only
+        self._imu_acc = None
 
     def _two_view_draws(self):
         if self._uniforms is not None:
@@ -879,6 +951,7 @@ class KeyframeSLAM:
                     self.arena = self.arena.replace(
                         overflow=torch.ones_like(self.arena.overflow))
                 return
+            self._emit_imu_factor(fid)
             matched = torch.zeros(c.max_kps, dtype=torch.bool,
                                   device=self.device)
             if tracked:
@@ -899,18 +972,32 @@ class KeyframeSLAM:
                                                           feats, pose_cw)
         self._finish_keyframe(fid, run_ba)
 
+    def _emit_imu_factor(self, fid: int) -> None:
+        """The factor composed since the last keyframe, as the
+        (last, fid) factor for VI BA and the (fid, last) rotation edge for
+        the loop pose graph; the velocity of ``fid`` predicted from it."""
+        if self._imu_acc is not None and self.last_kf_id >= 0:
+            last = self.last_kf_id
+            fac = _factor_to_numpy(self._imu_acc)
+            self.imu_edges.append((fid, last, fac.dq))
+            self.imu_factors.append((last, fid, fac))
+            self._imu_factor_idx[(last, fid)] = fac
+            self._predict_kf_velocity(last, fid, fac)
+        self._imu_acc = None
+
     def _finish_keyframe(self, fid: int, run_ba: bool) -> None:
-        """After inserting keyframe ``fid``: local BA, loop closing,
-        then map hygiene."""
+        """After inserting keyframe ``fid``: VI initialization, local BA,
+        loop closing, then map hygiene."""
         self.last_kf_id = fid
         self.frames_since_kf = 0
+        self._maybe_vi_init()
         if run_ba and self.cfg.enable_ba and self._n_frames_host >= 2:
             self._local_ba()
         if self.loop_closer is not None:
             with self.timer.section("slam/loop"):
                 self._bow_add(fid)
                 self.arena, closed = self.loop_closer.close(
-                    self.arena, self.camera, fid,
+                    self.arena, self.camera, fid, imu_edges=self.imu_edges,
                     global_ba_iters=self.cfg.loop_global_ba_iters)
                 if closed:
                     self.pose_wc = se3_inverse(
@@ -1017,12 +1104,66 @@ class KeyframeSLAM:
         self.last_kf_id = good[k0]
         return True
 
+    # -- visual-inertial state ---------------------------------------------
+    def _predict_kf_velocity(self, i: int, j: int, factor: ImuFactor) -> None:
+        """Seed keyframe j's world velocity from i's and the IMU factor."""
+        if not self.vi_ready or i not in self.kf_vel:
+            return
+        pose_cw_i = self.arena.frame_pose[i, :7].cpu()
+        R_wb = quat_to_matrix(pose_cw_i[3:7]).numpy().T
+        dt = float(factor.dt)
+        self.kf_vel[j] = (self.kf_vel[i] + self.gravity_w * dt
+                          + R_wb @ factor.dv).astype(np.float32)
+
+    def _maybe_vi_init(self) -> None:
+        """Visual-inertial alignment once ``vi_min_factors`` inter-keyframe
+        factors exist: linear gravity / velocity (+ mono scale)
+        estimation on the host; gravity is then refined by the joint VI
+        BA."""
+        c = self.cfg
+        if (self.vi_ready or not c.enable_vi_ba
+                or len(self.imu_factors) < c.vi_min_factors):
+            return
+        kf_ids = sorted({i for i, _, _ in self.imu_factors}
+                        | {j for _, j, _ in self.imu_factors})
+        id2loc = {f: k for k, f in enumerate(kf_ids)}
+        poses = self.arena.frame_pose[torch.tensor(kf_ids,
+                                                   device=self.device), :7]
+        pair_i = np.asarray([id2loc[i] for i, _, _ in self.imu_factors])
+        pair_j = np.asarray([id2loc[j] for _, j, _ in self.imu_factors])
+        imu = stack_factors([f for _, _, f in self.imu_factors], "cpu")
+        mono = self._cur_kp_depth is None
+        g, vel, s = estimate_gravity_velocity(poses, pair_i, pair_j, imu,
+                                              with_scale=mono)
+        if not np.isfinite(g).all() or not np.isfinite(vel).all():
+            return
+        if mono and (not np.isfinite(s) or not 0.05 < s < 50.0):
+            return  # degenerate alignment; retry with more factors later
+        if mono and abs(s - 1.0) > 1e-3:
+            self._apply_map_scale(float(s))  # velocities are metric already
+        self.gravity_w = g.astype(np.float32)
+        for k, f in enumerate(kf_ids):
+            self.kf_vel[f] = vel[k].astype(np.float32)
+        self.vi_ready = True
+
+    def _apply_map_scale(self, s: float) -> None:
+        """Rescale the vision world to metric (mono VI alignment), and the
+        trajectory recorded so far with it."""
+        a = self.arena
+        fp = a.frame_pose.clone()
+        fp[:, :3] = fp[:, :3] * s
+        self.arena = a.replace(frame_pose=fp, point_xyz=a.point_xyz * s,
+                               frame_kp_depth=a.frame_kp_depth * s)
+        scale = torch.tensor([s, s, s, 1.0, 1.0, 1.0, 1.0],
+                             device=self.device)
+        self.pose_wc = self.pose_wc * scale
+        self.velocity = self.velocity * scale
+        self.trajectory = [p * scale for p in self.trajectory]
+
     # ------------------------------------------------------------------
-    def _local_ba_step(self, arena: MapArena, kf: torch.Tensor):
-        """Window selection, problem extraction, LM, write-back; returns
-        (arena, pose_wc of ``kf``).  The B5 / B6 kernels run when
-        ``resolve_ba_kernels`` allows (at most 32 cameras), the plain
-        Schur path above that."""
+    def _local_ba_window(self, arena: MapArena, kf: torch.Tensor):
+        """The covisibility window of ``kf``: (cam_ids, point_ids, BA
+        problem), the oldest keyframe and keyframe 0 fixed."""
         c = self.cfg
         nbr, _ = covisibility_topk(arena, kf, k=c.ba_window - 1,
                                    min_common=5)
@@ -1036,17 +1177,81 @@ class KeyframeSLAM:
         problem, _ = build_problem_from_arena(
             arena, cam_ids, point_ids, fixed, self.camera,
             max_obs_per_point=c.ba_obs_per_point)
-        problem, _ = bundle_adjust(
-            problem, iters=c.ba_iters,
-            use_kernels=resolve_ba_kernels(c.use_kernels, cam_ids.shape[0]))
-        arena = write_back_to_arena(arena, problem, cam_ids, point_ids)
-        return arena, se3_inverse(arena.frame_pose[kf.long()][:7])
+        return cam_ids, point_ids, problem
 
     def _local_ba(self) -> None:
+        """Local BA over the last keyframe's window, written back; the
+        joint VI LM once VI is initialized.  The B5 / B6 kernels run when
+        ``resolve_ba_kernels`` allows (at most 32 cameras), the plain
+        Schur path above that."""
+        c = self.cfg
         with self.timer.section("slam/local_ba"):
             kf = self._kf_tensor()
-            self.arena, self.pose_wc = self._local_ba_step(self.arena, kf)
+            cam_ids, point_ids, problem = self._local_ba_window(self.arena,
+                                                                kf)
+            kernels = resolve_ba_kernels(c.use_kernels, cam_ids.shape[0])
+            if self.vi_ready and c.enable_vi_ba:
+                with self.timer.section("slam/vi_local_ba"):
+                    problem = self._vi_local_ba(problem, cam_ids, kernels)
+            else:
+                problem, _ = bundle_adjust(problem, iters=c.ba_iters,
+                                           use_kernels=kernels)
+            self.arena = write_back_to_arena(self.arena, problem, cam_ids,
+                                             point_ids)
+            self.pose_wc = se3_inverse(self.arena.frame_pose[kf.long()][:7])
             self.timer.block(self.pose_wc)
+
+    def _vi_local_ba(self, problem, cam_ids: torch.Tensor,
+                     use_kernels: bool):
+        """Joint visual-inertial LM over the window: the IMU factors whose
+        endpoints both lie in it couple poses, velocities and biases; the
+        factor slots are padded to ``ba_window`` with inert identity
+        factors.  Reads the window's ids (one fetch) and the velocities,
+        biases and gravity after (one fetch)."""
+        c = self.cfg
+        dev = self.device
+        cam_list = cam_ids.tolist()
+        loc = {f: k for k, f in enumerate(cam_list) if f >= 0}
+        K = c.ba_window
+        pi = np.full(K, -1, np.int32)
+        pj = np.full(K, -1, np.int32)
+        pv = np.zeros(K, bool)
+        facs = []
+        # factors exist only between temporally consecutive keyframes: look
+        # each in-window ordered pair up in the index
+        for i in sorted(loc):
+            for j in sorted(loc):
+                f = self._imu_factor_idx.get((i, j))
+                if f is not None and len(facs) < K:
+                    k = len(facs)
+                    pi[k], pj[k], pv[k] = loc[i], loc[j], True
+                    facs.append(f)
+        facs += [_PAD_FACTOR] * (K - len(facs))
+        vel = np.stack([self.kf_vel.get(f, np.zeros(3, np.float32))
+                        for f in cam_list])
+        state = torch.from_numpy(np.concatenate([
+            vel.reshape(-1), self.gravity_w, self.bias_g,
+            self.bias_a]).astype(np.float32)).to(dev)
+        n = vel.size
+        vip = ViProblem(
+            vision=problem, vel=state[:n].reshape(-1, 3),
+            pair_i=torch.from_numpy(pi).to(dev),
+            pair_j=torch.from_numpy(pj).to(dev),
+            pair_valid=torch.from_numpy(pv).to(dev),
+            imu=stack_factors(facs, dev), gravity_w=state[n:n + 3],
+            bias_g=state[n + 3:n + 6], bias_a=state[n + 6:n + 9])
+        out, self.vi_costs = vi_bundle_adjust(
+            vip, iters=c.vi_ba_iters, refine_gravity=True,
+            use_kernels=use_kernels)
+        got = torch.cat([out.vel.reshape(-1), out.bias_g, out.bias_a,
+                         out.gravity_w]).cpu().numpy()
+        out_vel = got[:n].reshape(-1, 3)
+        for f, k in loc.items():
+            self.kf_vel[f] = out_vel[k]
+        self.bias_g = got[n:n + 3]
+        self.bias_a = got[n + 3:n + 6]
+        self.gravity_w = got[n + 6:n + 9]
+        return out.vision
 
     # -- evaluation helpers -------------------------------------------------
     def positions(self) -> np.ndarray:

@@ -5,9 +5,10 @@ descriptors become a sparse BoW vector in a keyframe database; a new
 keyframe queries it, candidates are verified geometrically (word-gated
 descriptor matching, then search by projection, each with a PnP RANSAC),
 the verified loop's observations are fused into the map, a pose graph
-over the temporal chain, strong covisibility pairs and the loop edge is
-optimized, map points are carried rigidly with their reference keyframe,
-and a short global BA polishes the map when the correction moved it.
+over the temporal chain, strong covisibility pairs, the loop edge and
+(with IMU) rotation-only inertial edges is optimized, map points are
+carried rigidly with their reference keyframe, and a short global BA
+polishes the map when the correction moved it.
 
 The database lives on the device: (cap_frames, S) word-id and weight
 slabs, S * 8 bytes per keyframe at any vocabulary size; a query is one
@@ -24,6 +25,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gslam_tpu_torch.core.imu import ImuDelta, imu_rotation_edge
 from gslam_tpu_torch.core.se3 import se3_apply, se3_inverse, se3_mul
 from gslam_tpu_torch.estimation.pnp import find_pnp_ransac, pose_information
 from gslam_tpu_torch.map.arena import (
@@ -271,8 +273,8 @@ class LoopCloser:
         return T, n_i
 
     def close(self, arena: MapArena, camera, kf_id: int,
-              imu_edges=None, global_ba_iters: int = 0
-              ) -> Tuple[MapArena, bool]:
+              imu_edges=None, imu_weight: float = 5.0,
+              global_ba_iters: int = 0) -> Tuple[MapArena, bool]:
         """Detect + verify + fuse + pose-graph correct (+ global BA).
         Returns (arena, did).
 
@@ -282,11 +284,10 @@ class LoopCloser:
         drifted configuration.  After the pose-graph correction a short
         global BA (``global_ba_iters`` > 0) polishes the whole map
         through those observations, when the correction moved the map.
+        ``imu_edges`` ((i, j, dq) of the inter-keyframe gyro deltas) enter
+        the pose graph as rotation-only edges of weight ``imu_weight``
+        (ids outside the graph skipped).
         """
-        if imu_edges:
-            raise NotImplementedError(
-                "IMU rotation edges in the loop pose graph are not ported "
-                "to gslam_tpu_torch yet (ROADMAP Queue A item 13)")
         if kf_id - self._last_closed_kf < self.cooldown:
             return arena, False
         dev = arena.device
@@ -361,6 +362,20 @@ class LoopCloser:
             / max(scale, 1e-9)
         w = np.concatenate([w, np.clip(d_loop, 0.25, 8.0).astype(
             np.float32)[None]])
+        # inertial edges: the gyro delta's rotation, no translation
+        imu_rel, imu_w = [rel], [w]
+        for (i, j, dq) in imu_edges or ():
+            if i >= F or j >= F:
+                continue
+            Zi, info = imu_rotation_edge(
+                ImuDelta(dq=torch.as_tensor(dq), dv=None, dp=None, dt=None),
+                weight=imu_weight)
+            ei.append(i)
+            ej.append(j)
+            imu_rel.append(Zi.numpy()[None])
+            imu_w.append(info.numpy()[None])
+        rel = np.concatenate(imu_rel)
+        w = np.concatenate(imu_w)
 
         # nodes and edges padded to bucket sizes (fixed identities, zero-
         # weight edges), as the JAX package pads them: the dense solve's

@@ -1,6 +1,6 @@
 """ORB-style feature frontend: FAST + orientation + rotated BRIEF.
 
-Counterpart of the single-scale path of ``gslam_tpu/ops/frontend.py``.
+Counterpart of ``gslam_tpu/ops/frontend.py``, single-scale and pyramid.
 The functions here are the plain PyTorch versions, written to round as
 the jnp reference does: the separable filters are explicit
 shift-multiply-adds in the reference's tap order, the FAST arc sums run
@@ -10,7 +10,8 @@ descending sort (``lax.top_k`` breaks ties by lowest index).
 :func:`extract_features` with ``use_kernels=True`` routes the detector
 and the BRIEF sampler through the CUDA kernels of
 :mod:`gslam_tpu_torch.ops.cuda`, which take these functions' results as
-their gold.
+their gold.  :func:`extract_features_pyramid` runs that extraction per
+level of an antialiased bilinear pyramid (:func:`image_pyramid`).
 """
 
 from __future__ import annotations
@@ -85,6 +86,23 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
     """Separable Gaussian blur, SAME padding. img (H, W) f32."""
     k = _gauss_kernel1d(sigma, radius)
     return _sep_filter(img, k, k)
+
+
+def image_pyramid(img: torch.Tensor, n_levels: int = 4,
+                  scale: float = 1.25) -> list:
+    """Downscaled copies of ``img`` (level 0 = the input): level i is
+    (round(H / scale^i), round(W / scale^i)).  The JAX package resizes
+    with ``jax.image.resize(..., "linear")``, which antialiases when it
+    shrinks; so does this (a triangle filter widened by the scale), and
+    the two agree to about 1e-6, not bit for bit."""
+    out = [img]
+    H, W = img.shape
+    for i in range(1, n_levels):
+        size = (int(round(H / scale ** i)), int(round(W / scale ** i)))
+        out.append(F.interpolate(img[None, None], size=size,
+                                 mode="bilinear", align_corners=False,
+                                 antialias=True)[0, 0].contiguous())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -327,3 +345,36 @@ def extract_features(img: torch.Tensor, max_kps: int = 512,
     return Features(uv=uv, score=val,
                     angle=torch.where(valid, angle, angle.new_zeros(())),
                     desc=desc, valid=valid, count=count)
+
+
+def pyramid_budgets(shapes, max_kps: int) -> np.ndarray:
+    """Keypoints per level in proportion to level area (at least 8),
+    rounded, with level 0 taking the rounding so they sum to max_kps."""
+    areas = np.asarray([h * w for h, w in shapes], np.float64)
+    ks = np.maximum(8, np.round(max_kps * areas / areas.sum()).astype(int))
+    ks[0] += max_kps - int(ks.sum())
+    return ks
+
+
+def extract_features_pyramid(img: torch.Tensor, max_kps: int = 512,
+                             threshold: float = 0.06, n_levels: int = 4,
+                             scale: float = 1.25,
+                             use_kernels: bool = True) -> Features:
+    """Multi-scale ORB-style extraction over :func:`image_pyramid`.
+
+    Each level gets its budget of :func:`pyramid_budgets` and runs
+    :func:`extract_features` at level resolution (B1 and B2 once per
+    level with ``use_kernels``); uv are mapped back to level-0 pixels
+    and the levels concatenated in order, so the set holds ``max_kps``
+    slots and ``count`` is the sum of the levels' counts."""
+    pyr = image_pyramid(img, n_levels=n_levels, scale=scale)
+    ks = pyramid_budgets([lvl.shape for lvl in pyr], max_kps)
+    parts = []
+    for lev, lvl in enumerate(pyr):
+        f = extract_features(lvl, max_kps=int(ks[lev]), threshold=threshold,
+                             use_kernels=use_kernels)
+        parts.append(f._replace(uv=f.uv * float(np.float32(scale ** lev))))
+    return Features(*(torch.cat([getattr(p, k) for p in parts])
+                      for k in Features._fields[:-1]),
+                    count=torch.stack([p.count for p in parts]).sum()
+                    .to(torch.int32))

@@ -22,7 +22,7 @@ import torch
 
 from chip_smoke import (
     assert_schur_close, ba_case, cost_order, fast_case, matcher_case,
-    to_problem, without_pad_indices,
+    to_problem, vi_case, without_pad_indices,
 )
 from gslam_tpu_torch.ops import frontend, matching
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
@@ -95,6 +95,70 @@ def test_fast_nms_kernel_unaligned_image(dev):
     nms_p, raw_p = fastnms.fast_nms_plain(x, 0.06)
     torch.cuda.synchronize()
     assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
+
+
+def vga_pyramid(dev, scale=1.25, n_levels=3):
+    """The three-level pyramid of a textured VGA blob image, as
+    extract_features_pyramid forms it on the card, and the levels'
+    keypoint budgets at max_kps 512."""
+    rng = np.random.default_rng(4)
+    img = blob_image(rng, 480, 640, n=640)
+    img += rng.uniform(0, 0.03, img.shape).astype(np.float32)
+    levels = frontend.image_pyramid(torch.as_tensor(img, device=dev),
+                                    n_levels=n_levels, scale=scale)
+    return levels, frontend.pyramid_budgets([x.shape for x in levels], 512)
+
+
+def test_fast_nms_kernel_at_pyramid_levels(dev):
+    """Both maps bit for bit on the pyramid's levels, 384x512 and 307x410
+    (a width that is not a multiple of 4: the 4-byte loads)."""
+    levels, _ = vga_pyramid(dev)
+    assert [tuple(x.shape) for x in levels] == [(480, 640), (384, 512),
+                                                (307, 410)]
+    for lvl in levels[1:]:
+        before = fastnms.launches
+        nms_k, raw_k = fastnms.fast_nms_raw(lvl, 0.08)
+        nms_p, raw_p = fastnms.fast_nms_plain(lvl, 0.08)
+        torch.cuda.synchronize()
+        assert fastnms.launches == before + 1
+        assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
+        assert int((nms_k > 0).sum()) > 100
+
+
+def test_brief_kernel_at_pyramid_budgets(dev):
+    """Bit for bit at each level of the VGA pyramid with its budget of
+    the 512 keypoints (250, 160 and 102), as extract_features forms
+    the inputs."""
+    levels, ks = vga_pyramid(dev)
+    assert ks.tolist() == [250, 160, 102]
+    for lvl, k in zip(levels, ks):
+        nms, raw = fastnms.fast_nms_plain(lvl, 0.08)
+        uv, _, valid, _ = frontend.select_keypoints(nms, max_kps=int(k),
+                                                    raw_score=raw)
+        ang = frontend.compute_orientations(lvl, uv)
+        blur = frontend.gaussian_blur(lvl)
+        args = (blur, uv, torch.cos(ang), torch.sin(ang))
+        before = brief.launches
+        d_k = brief.brief(*args)
+        d_p = frontend.brief_from_rotation(*args)
+        torch.cuda.synchronize()
+        assert brief.launches == before + 1
+        assert torch.equal(d_k, d_p) and int(valid.sum()) > 0.8 * k
+
+
+def test_extract_features_pyramid_kernels_equal_plain(dev):
+    levels, _ = vga_pyramid(dev)
+    img = levels[0]
+    before = (fastnms.launches, brief.launches)
+    f_k = frontend.extract_features_pyramid(img, max_kps=512,
+                                            threshold=0.08, n_levels=3)
+    f_p = frontend.extract_features_pyramid(img, max_kps=512,
+                                            threshold=0.08, n_levels=3,
+                                            use_kernels=False)
+    assert (fastnms.launches, brief.launches) == (before[0] + 3,
+                                                  before[1] + 3)
+    for a, b in zip(f_k, f_p):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("H,W,K,margin", [
@@ -507,6 +571,57 @@ def test_bundle_adjust_kernels_follow_plain_lm_path(dev):
     torch.testing.assert_close(st_k.cost, st_p.cost, rtol=1e-3, atol=0)
     torch.testing.assert_close(out_k.cam_pose, out_p.cam_pose, rtol=0,
                                atol=1e-4)
+
+
+def test_vi_bundle_adjust_kernels_follow_plain_lm(dev):
+    """The joint VI LM through B5 / B6 against the plain LM on one window
+    (tests/test_vi.py's, C = 6, 10 iterations): B5 is not bit for bit
+    (Hpp^-1 to test_pallas.py's tolerances), so the costs agree to rtol
+    1e-3 and the poses to 1e-4 (test_pallas.py's VI tolerances), the
+    velocities, biases and gravity to 1e-4 too.  B5 launches once per
+    iteration and B6 once per cost."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt.vi import vi_bundle_adjust
+
+    prob, _, _ = vi_case(device=dev)
+    before = (schur.schur_launches, schur.cost_launches)
+    out_k, c_k = vi_bundle_adjust(prob, iters=10, use_kernels=True)
+    torch.cuda.synchronize()
+    assert (schur.schur_launches - before[0],
+            schur.cost_launches - before[1]) == (10, 11)
+    out_p, c_p = vi_bundle_adjust(prob, iters=10)
+    torch.testing.assert_close(c_k, c_p, rtol=1e-3, atol=0)
+    for name in ("vel", "bias_g", "bias_a", "gravity_w"):
+        torch.testing.assert_close(getattr(out_k, name), getattr(out_p, name),
+                                   rtol=0, atol=1e-4)
+    torch.testing.assert_close(out_k.vision.cam_pose, out_p.vision.cam_pose,
+                               rtol=0, atol=1e-4)
+    assert c_k[-1] < 0.1 * c_k[0]
+
+
+def test_vi_bundle_adjust_kernels_refine_gravity(dev):
+    """The gravity-refinement case of tests/test_vi.py (gravity 5 degrees
+    off, the direction free) through B5 / B6: the reference's assertions
+    hold (|g| = 9.81, under 2 degrees from the truth, the cost down).
+    Not held against the plain LM: there a 1e-6 relative change of the
+    observations alone moves the plain LM's poses by 6e-5 on the CPU, so
+    B5's Hpp^-1 error (about 1e-3 relative) is beyond a 1e-4 pose
+    tolerance."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.opt.vi import vi_bundle_adjust
+
+    prob, _, _ = vi_case(device=dev, pose_noise=0.01, vel_noise=0.1,
+                         tilt_deg=5.0)
+    before = (schur.schur_launches, schur.cost_launches)
+    out, c = vi_bundle_adjust(prob, iters=12, use_kernels=True,
+                              refine_gravity=True)
+    assert (schur.schur_launches - before[0],
+            schur.cost_launches - before[1]) == (12, 13)
+    g = out.gravity_w.cpu().numpy().astype(np.float64)
+    assert abs(np.linalg.norm(g) - 9.81) < 1e-3
+    cos = float(g @ [0.0, 0.0, -9.81]) / (9.81 * 9.81)
+    assert np.degrees(np.arccos(min(cos, 1.0))) < 2.0
+    assert torch.isfinite(c).all() and c[-1] < 1e-3 * c[0]
 
 
 def test_schur_wrapper_rejects_too_many_cameras(dev):

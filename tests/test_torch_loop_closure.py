@@ -288,7 +288,55 @@ def test_close_in_lockstep(side, monkeypatch):
     assert int(a_t.n_obs) > int(side.arena_t.n_obs)     # loop fusion
 
 
-def test_imu_edges_are_not_ported(side):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        side.closer_t.close(side.arena_t, side.cam_t, 5,
-                            imu_edges=[(0, 1, np.ones(4, np.float32))])
+def test_imu_edges_enter_the_pose_graph(side, monkeypatch):
+    """A closure with IMU edges (i, j, dq): after the chain, covisibility
+    and loop edges come one rotation-only edge per pair inside the graph
+    (ids past the keyframe count skipped), measured conj(dq) with no
+    translation and weighted 5 on the rotation only, in both packages;
+    the corrected maps agree as without them."""
+    graphs = {}
+    for name, mod in (("j", jlc), ("t", tlc)):
+        solve = mod.optimize_pose_graph
+
+        def recording(g, *a, _name=name, _solve=solve, **kw):
+            graphs[_name] = g
+            return _solve(g, *a, **kw)
+
+        monkeypatch.setattr(mod, "optimize_pose_graph", recording)
+    rng = np.random.default_rng(9)
+    dqs = rng.normal(0, 0.05, (side.F + 1, 4)).astype(np.float32)
+    dqs[:, 0] = 1.0
+    dqs /= np.linalg.norm(dqs, axis=1, keepdims=True)
+    edges = [(i + 1, i, dqs[i]) for i in range(side.F - 1)]
+    edges.append((side.F + 2, side.F - 1, dqs[-1]))      # outside: skipped
+    kf = side.closer_t.closed[-1][0]
+    side.closer_j._last_closed_kf = side.closer_t._last_closed_kf = -100
+    a_j, did_j = side.closer_j.close(side.arena_j, side.cam_j, kf,
+                                     imu_edges=edges, global_ba_iters=4)
+    a_t, did_t = side.closer_t.close(side.arena_t, side.cam_t, kf,
+                                     imu_edges=edges, global_ba_iters=4)
+    assert side.replay.drained() and did_t and did_j
+    g_j, g_t = graphs["j"], graphs["t"]
+    for name in ("fixed", "edge_i", "edge_j", "edge_valid"):
+        np.testing.assert_array_equal(getattr(g_t, name).numpy(),
+                                      np.asarray(getattr(g_j, name)), name)
+    n = int(g_t.edge_valid.sum())
+    imu_rows = slice(n - (side.F - 1), n)
+    np.testing.assert_array_equal(g_t.edge_i[imu_rows].numpy(),
+                                  np.arange(1, side.F))
+    rel = g_t.edge_rel[imu_rows].numpy()
+    np.testing.assert_array_equal(rel[:, :3], 0.0)
+    np.testing.assert_array_equal(rel[:, 4:], -dqs[:side.F - 1, 1:])
+    np.testing.assert_array_equal(
+        g_t.edge_weight[imu_rows].numpy(),
+        np.tile([0, 0, 0, 5.0, 5.0, 5.0], (side.F - 1, 1)))
+    np.testing.assert_allclose(g_t.edge_rel.numpy(), np.asarray(g_j.edge_rel),
+                               atol=1e-4)
+    np.testing.assert_allclose(g_t.edge_weight.numpy(),
+                               np.asarray(g_j.edge_weight), rtol=1e-3,
+                               atol=1e-5)
+    f_j, f_t = jfields(a_j), convert.arena_to_numpy(a_t)
+    np.testing.assert_allclose(f_t["frame_pose"], f_j["frame_pose"],
+                               atol=1e-3)
+    np.testing.assert_allclose(f_t["point_xyz"], f_j["point_xyz"],
+                               atol=1e-3)

@@ -16,8 +16,10 @@ the JAX package's, on the synthetic sequences of tests/test_slam_e2e.py.
   moves a few keypoints; the RANSAC draws differ).
 * The frame-store capacity edge: both packages drop the keyframes past
   ``cap_frames`` and raise the overflow flag.
-* The paths that are not ported raise NotImplementedError; a BA window
-  wider than the Schur kernel takes runs the plain path.
+* A BA window wider than the Schur kernel takes runs the plain path.
+
+Pyramid extraction and the visual-inertial mode are held in
+test_torch_pyramid.py and test_torch_vi_slam.py.
 """
 
 import jax
@@ -210,35 +212,6 @@ def test_keyframe_store_full():
     assert ate_t < 0.05 and abs(ate_t - ate_j) <= 0.01
 
 
-@pytest.mark.parametrize("what", ["imu", "vocabulary", "pyramid"])
-def test_unported_paths_raise(what):
-    """What is not ported raises and names its ROADMAP item.  A
-    vocabulary is accepted now; behind it the IMU rotation edges of the
-    loop pose graph are what still raises.  Frames without depth and
-    batched dispatch run (tests/test_torch_mono.py,
-    tests/test_torch_batch.py)."""
-    _, dt = datasets(n_frames=2)
-    fr = next(iter(dt))
-    cfg = dict(CFG)
-    kw = {}
-    if what == "pyramid":
-        cfg["n_levels"] = 2
-    elif what == "vocabulary":
-        kw["vocabulary"] = convert.vocabulary_from_numpy(
-            np.zeros((3, 8), np.uint32), np.ones(2, np.float32), 2, 1,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam = KeyframeSLAM(dt.camera, SLAMConfig(**cfg), device="cpu",
-                            **kw)
-        if what == "imu":
-            fr.imu = np.zeros((5, 7), np.float32)
-        elif what == "vocabulary":
-            slam.loop_closer.close(
-                slam.arena, dt.camera, 0,
-                imu_edges=[(0, 1, np.asarray([1.0, 0, 0, 0], np.float32))])
-        slam.track(fr)
-
-
 def test_wide_ba_window_with_kernels_raises():
     """More cameras than the Schur kernel takes no longer raises when
     the system is built: such a window runs the plain Schur path by the
@@ -282,6 +255,14 @@ MONO_SEQUENCE = dict(n_frames=48, n_points=3000, width=640, height=480,
                      motion="line", depth=False, texture=False, noise=0.01)
 # the JAX package's RANSAC draws of that run, for replay in the port
 MONO_DRAWS = "tests/data/mono_draws.npz"
+# chip_smoke.py's pyramid run: the 64-frame cell with three levels
+PYRAMID_CFG = dict(FULL_CFG, n_levels=3, pyramid_scale=1.25)
+# chip_smoke.py's visual-inertial run: 64 frames of the line motion with
+# IMU windows, the VI settings of tests/test_slam_e2e.py:465-466
+VI_SEQUENCE = dict(n_frames=64, n_points=1200, width=640, height=480,
+                   motion="line", depth=True, texture=True, imu=True,
+                   noise=0.01)
+VI_CFG = dict(FULL_CFG, vi_min_factors=6, kf_min_gap=2, kf_max_gap=6)
 
 
 def reference_run(seq: dict, cfg: dict, n_frames: int, batched: bool,
@@ -301,12 +282,18 @@ def reference_run(seq: dict, cfg: dict, n_frames: int, batched: bool,
     t = np.asarray([fr.timestamp for fr in frames])
     gt = np.stack([fr.gt_pose[:3] for fr in frames])
     m = j_eval(t, js.positions(), t, gt, with_scale=with_scale)
-    return dict(frames=n_frames, ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
-                keyframes=js._n_frames_host,
-                tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
-                            for s in js.stats),
-                first_mapped=next((i for i, s in enumerate(js.stats)
-                                   if s["n_kf"] > 0), None))
+    out = dict(frames=n_frames, ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+               keyframes=js._n_frames_host,
+               tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
+                           for s in js.stats),
+               first_mapped=next((i for i, s in enumerate(js.stats)
+                                  if s["n_kf"] > 0), None))
+    if seq.get("imu"):
+        out.update(vi_ready=js.vi_ready, imu_factors=len(js.imu_factors),
+                   imu_edges=len(js.imu_edges),
+                   gravity_w=None if js.gravity_w is None
+                   else np.asarray(js.gravity_w).tolist())
+    return out
 
 
 def record_mono_draws(path: str = MONO_DRAWS) -> dict:
@@ -359,6 +346,12 @@ REFERENCE_RUNS = {
         MONO_SEQUENCE, FULL_CFG, 48, batched=False, with_scale=True),
     # the same run, its draws written to MONO_DRAWS
     "--reference-draws-mono": record_mono_draws,
+    # the 64-frame cell with pyramid extraction
+    "--reference-ate-pyramid": lambda: reference_run(
+        FULL_SEQUENCE, PYRAMID_CFG, 64, batched=False, with_scale=False),
+    # the visual-inertial run
+    "--reference-ate-vi": lambda: reference_run(
+        VI_SEQUENCE, VI_CFG, 64, batched=False, with_scale=False),
 }
 
 
