@@ -105,7 +105,35 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     the JAX package's run, the same ATE bit for bit in a second run;
     ms/frame, ``slam/local_ba`` and its share of the wall, the last VI
     LM's cost history;
-11. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
+11. lens models: ``project`` / ``unproject`` of the pinhole, ATAN,
+    OpenCV and OCAM models (tests/test_geometry.py's calibrations) over a
+    480 x 640 pixel grid, the Freiburg-1 ``Undistorter`` on one VGA frame
+    and the two ``StereoRectifier`` remaps of the rotated, distorted rig
+    of tests/test_datasets_eval.py:350, each on the card against the
+    same call on the CPU (max abs error printed, gated at a few float32
+    ulps), with the card's time of each;
+12. the hard distorted gate of tests/test_slam_e2e.py:527-549 at full
+    width, not cut: ``KeyframeSLAM`` over 40 frames of the ``line``
+    motion at 480 x 640 through the OpenCV camera (k1 -0.25, k2 0.08;
+    textured, exposure 0.15, 600 points) with that test's configuration,
+    launch counters around it, twice with the same ATE bit for bit; then
+    through ``track_batch`` with 8 a dispatch (the OpenCV model inside
+    the captured body), counters around it; then the graph against its
+    eager body on one batch, bit for bit.  Gates: >= 90% tracked, >= 4
+    keyframes, the ATE within ``max(0.05, 2 ref + 0.01)`` of the JAX
+    package's run and under the test's own 0.20 m;
+13. the main path from files: 64 frames of that scene written in the TUM
+    RGB-D layout (8-bit RGB and 16-bit depth PNGs by a standard-library
+    writer, rgb.txt, depth.txt, groundtruth.txt, calib.txt) into a
+    temporary directory, the native decoder built from
+    ``native/gslam_native.cpp``, the directory opened with
+    ``open_dataset(dir + ".tumrgbd")``: every decoded frame equal to what
+    was written, the camera OpenCV; decode ms/frame (the player, the
+    colour files alone, their gray, ``NativeLoader``'s readahead), then
+    ``KeyframeSLAM`` over the decoded frames, counters around it, the ATE
+    within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run over the
+    same files, track ms/frame beside decode ms/frame;
+14. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
     of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
     frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
     6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
@@ -116,12 +144,12 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
     feed frames from the far side of the ring and require BoW
     relocalization to bring the pose back through B7;
-12. print the slices' JSON lines (the probes and the extra shapes'
+15. print the slices' JSON lines (the probes and the extra shapes'
     times among them), the ``kernels`` JSON line, then the device JSON
     as the last line.
 
-Needs a CUDA card and ``nvcc``; without a card it exits non-zero before
-printing any result.
+Needs a CUDA card, ``nvcc`` and ``g++``; without a card it exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
@@ -130,22 +158,30 @@ import ctypes
 import ctypes.util
 import glob
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from gslam_tpu_torch.core.camera import pinhole_unproject
+from gslam_tpu_torch.app.registry import open_dataset
+from gslam_tpu_torch.core.camera import Camera, pinhole_unproject
+from gslam_tpu_torch.core.image import to_gray_f32
 from gslam_tpu_torch.core.imu import preintegrate_full
 from gslam_tpu_torch.core.se3 import se3_apply
+from gslam_tpu_torch.core.undistort import StereoRectifier, Undistorter
 from gslam_tpu_torch.estimation.pnp import (
     _p3p_grunert, pnp_reproj_error, refine_pose_gn,
 )
 from gslam_tpu_torch.estimation.ransac import run_ransac
+from gslam_tpu_torch.datasets import native_loader
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.models import keyframe_slam
@@ -242,6 +278,48 @@ VI_CFG = dict(SLAM_CFG, vi_min_factors=6, kf_min_gap=2, kf_max_gap=6)
 REF_ATE_VI = 0.015885187312960625
 ATE_GATE_VI = max(0.05, 2.0 * REF_ATE_VI + 0.01)
 GRAVITY_TRUE = np.asarray([0.0, 0.0, -9.81])
+
+# the reference's hard synthetic gate (tests/test_slam_e2e.py:527-549),
+# not cut: 40 frames of the line motion at 480x640 through a radially
+# distorted OpenCV camera (k1 -0.25, k2 0.08), textured, exposure jitter
+# 0.15, 600 points, depth, and that test's configuration; the OpenCV
+# project / unproject run inside the tracking (and the batch graph)
+DISTORTED_SEQUENCE = dict(n_frames=40, n_points=600, width=640, height=480,
+                          motion="line", depth=True, texture=True,
+                          exposure=0.15, distortion=[-0.25, 0.08])
+DISTORTED_CFG = dict(max_kps=384, fast_threshold=0.08, ba_window=4,
+                     ba_points=512, ba_iters=3, cap_frames=32,
+                     cap_points=8192, cap_obs=32768, local_map_size=768,
+                     kf_max_gap=6)
+DISTORTED_BATCH_CFG = dict(DISTORTED_CFG, dispatch_batch=BATCH_K)
+DISTORTED_EAGER_AT = 16  # the graph against the eager body: frames 16-23
+# ATE (m) of the JAX package's runs of the same frames, one a call and
+# through track_batch (``python tests/test_torch_slam.py
+# --reference-ate-distorted`` and ``--reference-ate-distorted-batched``,
+# CPU); accuracy figures, not speed figures.  The test's own bar is 0.20 m
+REF_ATE_DISTORTED = 0.021682703867554665
+REF_ATE_DISTORTED_BATCHED = 0.022814733907580376
+ATE_BAR_DISTORTED = 0.20
+ATE_GATE_DISTORTED = min(max(0.05, 2.0 * REF_ATE_DISTORTED + 0.01),
+                         ATE_BAR_DISTORTED)
+ATE_GATE_DISTORTED_BATCHED = min(
+    max(0.05, 2.0 * REF_ATE_DISTORTED_BATCHED + 0.01), ATE_BAR_DISTORTED)
+
+# the main path from files on disk: 64 frames of that scene written in
+# the TUM RGB-D layout (gslam_tpu/datasets/tum_rgbd.py:1-16: 8-bit RGB
+# PNGs, 16-bit depth PNGs at 5000 a metre, rgb.txt, depth.txt,
+# groundtruth.txt, and a calib.txt with the synthetic camera's
+# "fx fy cx cy k1 k2 0 0 0"), read back through
+# open_dataset(dir + ".tumrgbd"), tracked with DISTORTED_CFG
+TUM_SEQUENCE = dict(DISTORTED_SEQUENCE, n_frames=64)
+# depth files are stamped 5 ms after their colour frame (TUM's sensors
+# stamp the two streams apart; the loader associates within 20 ms)
+TUM_DEPTH_DT = 0.005
+# ATE (m) of the JAX package's KeyframeSLAM over the same files read
+# through its own open_dataset (``python tests/test_torch_slam.py
+# --reference-ate-tum``, CPU); an accuracy figure
+REF_ATE_TUM = 0.023739947006106377
+ATE_GATE_TUM = max(0.05, 2.0 * REF_ATE_TUM + 0.01)
 
 # the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
 # package's own loop-closure configuration), stock loop-closer settings
@@ -1475,10 +1553,11 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def run_batched(camera, frames, seed=0):
-    """A fresh KeyframeSLAM through track_batch over ``frames``, 8 a
-    dispatch; (slam, seconds, seconds of them capturing graphs)."""
-    slam = KeyframeSLAM(camera, SLAMConfig(**BATCH_CFG, seed=seed),
+def run_batched(camera, frames, seed=0, cfg=None):
+    """A fresh KeyframeSLAM (``cfg``, by default BATCH_CFG) through
+    track_batch over ``frames``, 8 a dispatch; (slam, seconds, seconds of
+    them capturing graphs)."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**(cfg or BATCH_CFG), seed=seed),
                         device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1552,15 +1631,16 @@ def phase_batched(camera, frames):
                    launches_per_replay=g.captured))
 
 
-def phase_graph_vs_eager(camera, frames):
+def phase_graph_vs_eager(camera, frames, cfg=None, at=BATCH_EAGER_AT):
     """The captured graph against the same K-frame body run eagerly, on
-    one batch (frames BATCH_EAGER_AT onwards after tracking the frames
-    before one a call) with the same uniforms: every output bit for bit,
-    twice."""
-    slam = KeyframeSLAM(camera, SLAMConfig(**BATCH_CFG), device=DEVICE)
-    for fr in frames[:BATCH_EAGER_AT]:
+    one batch (frames ``at`` onwards after tracking the frames before one
+    a call; ``cfg`` by default BATCH_CFG) with the same uniforms: every
+    output bit for bit, twice."""
+    slam = KeyframeSLAM(camera, SLAMConfig(**(cfg or BATCH_CFG)),
+                        device=DEVICE)
+    for fr in frames[:at]:
         slam.track(fr)
-    batch = frames[BATCH_EAGER_AT:BATCH_EAGER_AT + BATCH_K]
+    batch = frames[at:at + BATCH_K]
     imgs = torch.from_numpy(np.stack([fr.image for fr in batch])).to(DEVICE)
     slab = slam._slab(slam.arena, slam._kf_tensor())
     x = slam._batch_inputs(imgs, slam._batch_uniforms(BATCH_K), *slab[1:])
@@ -1583,8 +1663,8 @@ def phase_graph_vs_eager(camera, frames):
             raise AssertionError(f"graph replay differs from the eager body "
                                  f"in outputs {differ}")
     rows = eager.rows.cpu().numpy()
-    log(f"graph vs eager body, frames {BATCH_EAGER_AT}-"
-        f"{BATCH_EAGER_AT + BATCH_K - 1}: {len(leaves)} outputs bit for bit "
+    log(f"graph vs eager body, frames {at}-{at + BATCH_K - 1}: "
+        f"{len(leaves)} outputs bit for bit "
         f"equal in two replays (poses, packed rows, visible / found, frozen "
         f"trigger state); inliers {rows[:, 14].astype(int).tolist()}, "
         f"trigger {rows[:, 17].astype(int).tolist()}; eager body "
@@ -1922,6 +2002,416 @@ def phase_vi():
         ms_per_frame_runs=[ms, secs2 * 1e3 / n], split_ms_per_frame=split,
         local_ba_s=lba, local_ba_share=lba / secs,
         vi_lm_launches=inside, last_vi_costs=costs)
+
+
+# ---------------------------------------------------------------------------
+# lens models, undistortion and rectification; files on disk
+
+# the TUM benchmark's Freiburg-1 calibration (gslam_tpu/datasets/
+# tum_rgbd.py's default camera: OpenCV radial-tangential with k3)
+FR1_ARGS = (640, 480, 517.3, 516.5, 318.6, 255.3,
+            0.2624, -0.9531, -0.0054, 0.0026, 1.1633)
+# card against CPU: a few float32 ulps (CUDA's tanf, atanf and atan2f
+# are within 2 to 4 ulps of the rounded result, PyTorch's CPU versions
+# within 1): pixels to 1e-3 px, rays to 1e-5, remapped images to 1e-6
+LENS_PX_TOL, LENS_RAY_TOL, REMAP_TOL = 1e-3, 1e-5, 1e-6
+
+
+def ocam_calibration():
+    """tests/test_geometry.py's OCAM calibration: a near-equidistant
+    omnidirectional fit (cam2world degree 5, world2cam degree 9)."""
+    f = 300.0
+    rho = np.linspace(1e-3, f * 1.2, 64)
+    theta = rho / f
+    z_over_rxy = np.cos(theta) / np.sin(theta) * rho
+    poly = np.polynomial.polynomial.polyfit(rho, z_over_rxy, 5)
+    ang = np.arctan2(z_over_rxy, rho)
+    inv = np.polynomial.polynomial.polyfit(ang, rho, 9)
+    return [320.0, 240.0], [1.0, 0.0, 0.0], poly, inv
+
+
+# the four models at tests/test_geometry.py:185-246's calibrations (VGA)
+LENS_ARGS = {
+    "pinhole": (640, 480, 500.0, 505.0, 320.0, 240.0),
+    "atan": (640, 480, 500.0, 505.0, 320.0, 240.0, 0.9),
+    "opencv": (640, 480, 500.0, 505.0, 320.0, 240.0,
+               0.05, -0.01, 0.001, -0.002, 0.002),
+    "ocam": (640, 480, *ocam_calibration()),
+}
+
+
+def lens_camera(model):
+    return getattr(Camera, model)(*LENS_ARGS[model])
+
+
+def pixel_grid(W=640, H=480):
+    """(H * W, 2) float32 pixel centres, row-major."""
+    uu, vv = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    return np.stack([uu.ravel(), vv.ravel()], -1).astype(np.float32)
+
+
+def lens_points(cam, seed=0):
+    """Camera-frame points seen at every pixel of the VGA grid: the CPU
+    unprojection of the pixel centres, at seeded depths 0.5 to 8 (unit
+    rays scaled for OCAM)."""
+    rays = cam.unproject(torch.from_numpy(pixel_grid()))
+    depth = np.random.default_rng(seed).uniform(0.5, 8.0, (len(rays), 1))
+    return rays * torch.from_numpy(depth.astype(np.float32))
+
+
+def border_only(got, ref, uv, W, H, tol):
+    """Indices where two validity masks differ at a pixel coordinate more
+    than ``tol`` from the image border (none is allowed)."""
+    d = np.nonzero(got != ref)[0]
+    u, v = uv[d, 0], uv[d, 1]
+    near = ((np.abs(u) < tol) | (np.abs(u - W) < tol) | (np.abs(v) < tol)
+            | (np.abs(v - H) < tol))
+    return d[~near]
+
+
+def rotated_rig():
+    """tests/test_datasets_eval.py:350's rig: cam1 turned 2 / 1 / 0.5
+    degrees about y / x / z and 1.2 m along x; (R10, c1, T_c1c0)."""
+    def rot(axis, deg):
+        a = np.radians(deg)
+        c, s = np.cos(a), np.sin(a)
+        return np.array({"x": [[1, 0, 0], [0, c, -s], [0, s, c]],
+                         "y": [[c, 0, s], [0, 1, 0], [-s, 0, c]],
+                         "z": [[c, -s, 0], [s, c, 0], [0, 0, 1]]}[axis])
+
+    R10 = rot("y", 2.0) @ rot("x", 1.0) @ rot("z", 0.5)
+    c1 = np.array([1.2, 0.0, 0.0])
+    T10 = np.eye(4)
+    T10[:3, :3] = R10
+    T10[:3, 3] = -R10 @ c1
+    return R10, c1, T10
+
+
+def phase_lens():
+    """The four lens models' project and unproject over a VGA pixel grid,
+    the Freiburg-1 Undistorter on one VGA frame, and the StereoRectifier's
+    two remaps on the rotated distorted rig: on the card against the same
+    call on the CPU (max abs error each, gated at a few ulps), with the
+    card's time of each call."""
+    out = {}
+    grid = torch.from_numpy(pixel_grid())
+    for model in LENS_ARGS:
+        cam = lens_camera(model)
+        p = lens_points(cam)
+        uv_c, ok_c = cam.project(p)
+        uv_d, ok_d = cam.project(p.to(DEVICE))
+        r_c = cam.unproject(grid)
+        r_d = cam.unproject(grid.to(DEVICE))
+        torch.cuda.synchronize()
+        uv_d, ok_d, r_d = uv_d.cpu(), ok_d.cpu(), r_d.cpu()
+        fin = torch.isfinite(uv_c).all(-1)
+        px_err = float((uv_d - uv_c)[fin].abs().max())
+        ray_err = float((r_d - r_c).abs().max())
+        bad = border_only(ok_d.numpy(), ok_c.numpy(), uv_c.numpy(), 640, 480,
+                          LENS_PX_TOL)
+        mask_diff = int((ok_d != ok_c).sum())
+        pd, gd = p.to(DEVICE), grid.to(DEVICE)
+        ms_p = cuda_ms(lambda: cam.project(pd), reps=20)
+        ms_u = cuda_ms(lambda: cam.unproject(gd), reps=20)
+        log(f"lens {model}: project {len(p)} points max abs err "
+            f"{px_err:.3g} px ({int(ok_c.sum())} in the image, {mask_diff} "
+            f"masks differ at the border), unproject max abs err "
+            f"{ray_err:.3g}; card {ms_p:.4f} / {ms_u:.4f} ms")
+        if not (px_err <= LENS_PX_TOL and ray_err <= LENS_RAY_TOL
+                and len(bad) == 0 and torch.isfinite(r_d).all()):
+            raise AssertionError(f"lens {model}: card against CPU {px_err} "
+                                 f"px, {ray_err} in rays, masks differ at "
+                                 f"{bad[:4]}")
+        out[model] = dict(project_max_abs_err_px=px_err,
+                          unproject_max_abs_err=ray_err,
+                          mask_differences=mask_diff, project_ms=ms_p,
+                          unproject_ms=ms_u, points=len(p))
+    # the Freiburg-1 undistortion of one VGA frame of the distorted scene
+    ds = SyntheticDataset(**dict(DISTORTED_SEQUENCE, n_frames=1))
+    ds.open("synth://")
+    img = torch.from_numpy(next(iter(ds)).image)
+    und = Undistorter(Camera.opencv(*FR1_ARGS))
+    ref = und.undistort(img)
+    img_d = img.to(DEVICE)
+    got = und.undistort(img_d).cpu()
+    err = float((got - ref).abs().max())
+    ms = cuda_ms(lambda: und.undistort(img_d), reps=50)
+    log(f"Undistorter (Freiburg-1, 480x640): card against CPU max abs err "
+        f"{err:.3g}, {float(und.valid.mean()):.4f} of pixels valid; card "
+        f"{ms:.4f} ms a frame")
+    if not (err <= REMAP_TOL and ref[torch.from_numpy(und.valid)].std() > 0):
+        raise AssertionError(f"Undistorter: card against CPU {err}")
+    out["undistort_fr1"] = dict(max_abs_err=err, ms=ms,
+                                valid_share=float(und.valid.mean()))
+    # the two rectification remaps of the rotated, distorted rig at VGA
+    R10, c1, T10 = rotated_rig()
+    rig = SyntheticDataset(**dict(DISTORTED_SEQUENCE, n_frames=1, n_points=0,
+                                  depth=False))
+    rig.open("synth://")
+    img0, _ = rig._render(np.eye(3), np.zeros(3), False)
+    img1, _ = rig._render(R10.T, c1, False)
+    rec = StereoRectifier(rig.camera, rig.camera, T10)
+    pair = (torch.from_numpy(img0), torch.from_numpy(img1))
+    ref = rec.rectify(*pair)
+    pair_d = tuple(t.to(DEVICE) for t in pair)
+    got = [t.cpu() for t in rec.rectify(*pair_d)]
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    ms = cuda_ms(lambda: rec.rectify(*pair_d), reps=50)
+    log(f"StereoRectifier (rotated distorted rig, 480x640, baseline "
+        f"{rec.baseline:.4f} m): card against CPU max abs err {errs}; card "
+        f"{ms:.4f} ms a pair")
+    if not (max(errs) <= REMAP_TOL and abs(rec.baseline - 1.2) < 1e-9):
+        raise AssertionError(f"StereoRectifier: card against CPU {errs}")
+    out["rectify_pair"] = dict(max_abs_err=errs, ms=ms,
+                               baseline=rec.baseline)
+    return out
+
+
+def phase_distorted(camera, frames):
+    """The hard synthetic gate at full width: KeyframeSLAM over the 40
+    distorted frames one a call, counters around it, twice (the same ATE
+    bit for bit); then through track_batch, 8 a dispatch, counters
+    around it (each graph's replays counted); then that graph against its
+    eager body on one batch.  Tracked share, keyframes and the ATE gates
+    for both."""
+    n = len(frames)
+    reset_counts()
+    slam, secs = run_slam(camera, frames, cfg=DISTORTED_CFG)
+    launched = counts()
+    m = slam_metrics(slam, frames)
+    tracked, n_kf = tracked_frames(slam), slam._n_frames_host
+    split = split_ms(slam, n)
+    log(f"distorted path launches over {n} frames: {launched} ({secs:.2f} "
+        f"s, first run)")
+    log(f"distorted SLAM: {tracked}/{n} frames tracked, {n_kf} keyframes, "
+        f"ATE {m.ate_rmse!r} m (gate {ATE_GATE_DISTORTED:.4f} m; JAX "
+        f"reference {REF_ATE_DISTORTED:.6f} m), RPE {m.rpe_rmse:.6f} m; "
+        f"{secs * 1e3 / n:.3f} ms/frame; split ms/frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    slam2, secs2 = run_slam(camera, frames, cfg=DISTORTED_CFG)
+    ate2 = slam_metrics(slam2, frames).ate_rmse
+    log(f"distorted SLAM second run: {secs2 * 1e3 / n:.3f} ms/frame, ATE "
+        f"{ate2!r} m")
+    reset_counts()
+    bslam, bsecs, cap_s = run_batched(camera, frames, cfg=DISTORTED_BATCH_CFG)
+    blaunched = batched_launches(bslam, counts())
+    bm = slam_metrics(bslam, frames)
+    btracked, bn_kf = tracked_frames(bslam), bslam._n_frames_host
+    log(f"distorted track_batch launches over {n} frames: {blaunched} "
+        f"({bsecs:.2f} s, {cap_s:.3f} s of it capturing); {btracked}/{n} "
+        f"tracked, {bn_kf} keyframes, accepted per dispatch "
+        f"{bslam.batch_accepted}, ATE {bm.ate_rmse!r} m (gate "
+        f"{ATE_GATE_DISTORTED_BATCHED:.4f} m; JAX reference "
+        f"{REF_ATE_DISTORTED_BATCHED:.6f} m); {bsecs * 1e3 / n:.3f} ms/frame")
+    for what, lau in (("distorted", launched), ("distorted batched",
+                                                blaunched)):
+        missing = [k for k in SLAM_PATH if lau[k] < 1]
+        if missing:
+            raise AssertionError(f"kernels of the {what} path never ran: "
+                                 f"{missing}")
+    for what, s, mm, tr, kf, gate in (
+            ("distorted", slam, m, tracked, n_kf, ATE_GATE_DISTORTED),
+            ("distorted batched", bslam, bm, btracked, bn_kf,
+             ATE_GATE_DISTORTED_BATCHED)):
+        if not np.isfinite(s.positions()).all() or tr < 0.9 * n or kf < 4:
+            raise AssertionError(f"{what}: {tr} of {n} frames tracked, {kf} "
+                                 "keyframes, or a trajectory not finite")
+        if not mm.ate_rmse <= gate:
+            raise AssertionError(f"{what} ATE {mm.ate_rmse} m above {gate} m")
+    if ate2 != m.ate_rmse:
+        raise AssertionError(f"distorted second run: ATE {ate2!r} m differs "
+                             f"from {m.ate_rmse!r} m")
+    if bslam.timer.stats().get("slam/track_batch", {}).get("count", 0) < 1:
+        raise AssertionError("distorted: no batch dispatched")
+    graph = phase_graph_vs_eager(camera, frames, DISTORTED_BATCH_CFG,
+                                 DISTORTED_EAGER_AT)
+    return launched, blaunched, dict(
+        frames=n, tracked=tracked, keyframes=n_kf, ate_m=m.ate_rmse,
+        rpe_m=m.rpe_rmse, ms_per_frame_runs=[secs * 1e3 / n,
+                                             secs2 * 1e3 / n],
+        split_ms_per_frame=split,
+        batched=dict(tracked=btracked, keyframes=bn_kf, ate_m=bm.ate_rmse,
+                     ms_per_frame=bsecs * 1e3 / n, capture_s=cap_s,
+                     accepted=bslam.batch_accepted,
+                     launches=blaunched),
+        graph_vs_eager=graph)
+
+
+def write_png(path, arr):
+    """Write ``arr`` as a PNG with the standard library alone (zlib,
+    struct): uint8 gray (H, W), uint8 RGB (H, W, 3) or uint16 gray
+    (H, W) as 16-bit samples, filter 0 on every row, no interlace."""
+    arr = np.asarray(arr)
+    if arr.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG samples must be uint8 or uint16, got "
+                         f"{arr.dtype}")
+    if arr.ndim == 2:
+        color = 0
+    elif arr.ndim == 3 and arr.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError(f"PNG image must be (H, W) or (H, W, 3), got "
+                         f"{arr.shape}")
+    H, W = arr.shape[:2]
+    data = np.ascontiguousarray(arr, ">u2" if arr.dtype == np.uint16
+                                else np.uint8)
+    rows = data.view(np.uint8).reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+    depth = 16 if arr.dtype == np.uint16 else 8
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw))
+                + chunk(b"IEND", b""))
+
+
+def write_tum_sequence(root, frames, camera):
+    """Write rendered frames in the TUM RGB-D layout under ``root``: each
+    gray frame as an 8-bit RGB PNG (the gray level in all three
+    channels), its depth as a 16-bit PNG at 5000 a metre stamped
+    TUM_DEPTH_DT later, rgb.txt, depth.txt, groundtruth.txt (cam ->
+    world, quaternion xyzw, float32 values in full) and calib.txt
+    ("fx fy cx cy k1 k2 0 0 0" of the OpenCV ``camera``).  Returns the
+    (rgb, depth16) arrays written, frame by frame."""
+    root = Path(root)
+    (root / "rgb").mkdir(parents=True)
+    (root / "depth").mkdir()
+    rgb_lines = ["# color images", "# timestamp filename"]
+    depth_lines = ["# depth maps", "# timestamp filename"]
+    gt_lines = ["# ground truth trajectory",
+                "# timestamp tx ty tz qx qy qz qw"]
+    written = []
+    for fr in frames:
+        t = fr.timestamp
+        g = np.round(fr.image * 255.0).astype(np.uint8)
+        rgb = np.repeat(g[..., None], 3, -1)
+        d16 = np.round(fr.depth * 5000.0).clip(0, 65535).astype(np.uint16)
+        td = t + TUM_DEPTH_DT
+        name, dname = f"{t:.6f}.png", f"{td:.6f}.png"
+        write_png(root / "rgb" / name, rgb)
+        write_png(root / "depth" / dname, d16)
+        rgb_lines.append(f"{t:.6f} rgb/{name}")
+        depth_lines.append(f"{td:.6f} depth/{dname}")
+        p = fr.gt_pose                      # [t, qw qx qy qz]
+        gt_lines.append(" ".join([f"{t:.6f}"] + [
+            f"{float(p[i]):.9g}" for i in (0, 1, 2, 4, 5, 6, 3)]))
+        written.append((rgb, d16))
+    for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                        ("groundtruth.txt", gt_lines)):
+        (root / name).write_text("\n".join(lines) + "\n")
+    k = camera.params
+    (root / "calib.txt").write_text(
+        " ".join(f"{float(v):.9g}" for v in k[:6]) + " 0 0 0\n")
+    return written
+
+
+def phase_tum_disk():
+    """The main path from files: render the 64 frames, write them in the
+    TUM RGB-D layout into a temporary directory, build the native
+    decoder, open the directory with open_dataset(dir + ".tumrgbd"),
+    check every decoded frame against what was written (bit for bit) and
+    the camera (OpenCV, the synthetic parameters), time the decoding
+    (the player's frames, the colour files alone, and NativeLoader's
+    readahead of their gray), then KeyframeSLAM over the decoded frames,
+    counters around it, against the JAX package's run over the same
+    files."""
+    camera, frames, render_s = render(TUM_SEQUENCE)
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "synth_distorted")
+        t0 = time.perf_counter()
+        written = write_tum_sequence(root, frames, camera)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib = native_loader.build()
+        build_s = time.perf_counter() - t0
+        if lib.parent != build.BUILD_DIR or not lib.is_file():
+            raise AssertionError(f"native library not built: {lib}")
+        ds = open_dataset(root + ".tumrgbd")
+        if not (ds.is_opened() and len(ds) == n
+                and ds.camera.model == "opencv"
+                and np.array_equal(ds.camera.params, camera.params)):
+            raise AssertionError(f"TUM player: opened {ds.is_opened()}, "
+                                 f"{len(ds)} frames, camera "
+                                 f"{ds.camera.info()}")
+        t0 = time.perf_counter()
+        disk = list(ds)
+        decode_s = time.perf_counter() - t0
+        for i, (fr, (rgb, d16)) in enumerate(zip(disk, written)):
+            same = (np.array_equal(fr.color, rgb)
+                    and fr.depth.dtype == np.float32
+                    and np.array_equal(fr.depth,
+                                       d16.astype(np.float32) / 5000.0)
+                    and np.array_equal(fr.image, to_gray_f32(rgb))
+                    and np.array_equal(fr.gt_pose, frames[i].gt_pose)
+                    and abs(fr.timestamp - frames[i].timestamp) < 1e-6)
+            if not same:
+                raise AssertionError(f"decoded frame {i} differs from what "
+                                     "was written")
+        paths = [os.path.join(root, rel) for _, rel in ds.rgb]
+        t0 = time.perf_counter()
+        for p in paths:
+            native_loader.read_rgb_u8(p)
+        rgb_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gray = [native_loader.read_gray_f32(p) for p in paths]
+        gray_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loader = native_loader.NativeLoader(paths, n_threads=4, ring=8)
+        try:
+            ahead = [loader.next() for _ in paths]
+            end = loader.next()
+        finally:
+            loader.close()
+        ahead_s = time.perf_counter() - t0
+        if end is not None or not all(np.array_equal(a, g)
+                                      for a, g in zip(ahead, gray)):
+            raise AssertionError("NativeLoader's frames differ from the "
+                                 "plain decode, or it did not end")
+    reset_counts()
+    slam, secs = run_slam(ds.camera, disk, cfg=DISTORTED_CFG)
+    launched = counts()
+    m = slam_metrics(slam, disk)
+    tracked, n_kf = tracked_frames(slam), slam._n_frames_host
+    decode = dict(player_ms_per_frame=decode_s * 1e3 / n,
+                  rgb_decode_ms_per_frame=rgb_s * 1e3 / n,
+                  gray_decode_ms_per_frame=gray_s * 1e3 / n,
+                  readahead_ms_per_frame=ahead_s * 1e3 / n,
+                  write_ms_per_frame=write_s * 1e3 / n, build_s=build_s,
+                  render_s=render_s)
+    log(f"TUM layout on disk: {n} frames written ({write_s:.2f} s), native "
+        f"decoder built in {build_s:.2f} s ({lib.name}); every decoded frame "
+        f"equals what was written (colour, depth, gray, ground truth), "
+        f"camera {ds.camera.model}; decode ms/frame: player (colour + depth "
+        f"+ gray) {decode['player_ms_per_frame']:.3f}, colour files alone "
+        f"{decode['rgb_decode_ms_per_frame']:.3f}, their gray "
+        f"{decode['gray_decode_ms_per_frame']:.3f}, NativeLoader readahead "
+        f"(4 threads) {decode['readahead_ms_per_frame']:.3f}")
+    log(f"TUM path launches over {n} frames: {launched}; {tracked}/{n} "
+        f"frames tracked, {n_kf} keyframes, ATE {m.ate_rmse!r} m (gate "
+        f"{ATE_GATE_TUM:.4f} m; JAX reference {REF_ATE_TUM:.6f} m), RPE "
+        f"{m.rpe_rmse:.6f} m; track {secs * 1e3 / n:.3f} ms/frame beside "
+        f"decode {decode['player_ms_per_frame']:.3f} ms/frame")
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the TUM path never ran: {missing}")
+    if not np.isfinite(slam.positions()).all() or tracked < 0.9 * n \
+            or n_kf < 4:
+        raise AssertionError(f"TUM: {tracked} of {n} frames tracked, {n_kf} "
+                             "keyframes, or a trajectory not finite")
+    if not m.ate_rmse <= ATE_GATE_TUM:
+        raise AssertionError(f"TUM ATE {m.ate_rmse} m above {ATE_GATE_TUM} m")
+    return launched, dict(frames=n, tracked=tracked, keyframes=n_kf,
+                          ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+                          track_ms_per_frame=secs * 1e3 / n,
+                          split_ms_per_frame=split_ms(slam, n),
+                          decode=decode)
 
 
 def schur_work(prob):
@@ -2365,6 +2855,16 @@ def main() -> int:
     t = phase("mono main path", t)
     launched_vi, vi_checks = phase_vi()
     t = phase("visual-inertial main path", t)
+    lens = phase_lens()
+    t = phase("lens models", t)
+    camera_d, frames_d, render_s = render(DISTORTED_SEQUENCE)
+    launched_dist, launched_dist_b, dist_checks = phase_distorted(camera_d,
+                                                                  frames_d)
+    dist_checks["render_s"] = render_s
+    del frames_d
+    t = phase("distorted main path", t)
+    launched_tum, tum_checks = phase_tum_disk()
+    t = phase("TUM RGB-D from disk", t)
     rec_v = phase_check_vocab()
     t = phase("check B7", t)
     launched_loop, loop_run = phase_loop()
@@ -2412,6 +2912,15 @@ def main() -> int:
     log(json.dumps({"slice": "keyframe_slam_vi",
                     "shape": [VI_SEQUENCE["height"], VI_SEQUENCE["width"]],
                     **vi_checks, "launches": launched_vi}))
+    log(json.dumps({"slice": "lens", **lens}))
+    log(json.dumps({"slice": "keyframe_slam_distorted",
+                    "shape": [DISTORTED_SEQUENCE["height"],
+                              DISTORTED_SEQUENCE["width"]],
+                    **dist_checks, "launches": launched_dist,
+                    "launches_batched": launched_dist_b}))
+    log(json.dumps({"slice": "keyframe_slam_tum_disk",
+                    "shape": [TUM_SEQUENCE["height"], TUM_SEQUENCE["width"]],
+                    **tum_checks, "launches": launched_tum}))
     log(json.dumps({"slice": "loop_closure",
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],

@@ -5,7 +5,9 @@ card.  The layout mirrors the JAX package so that each counterpart is
 easy to find:
 
 * :mod:`gslam_tpu_torch.core` — SO(3)/SE(3) on quaternion 7-vectors,
-  Sim(3) with exp / log, the pinhole camera and IMU preintegration;
+  Sim(3) with exp / log, the pinhole, ATAN, OpenCV and OCAM lens models,
+  undistortion and stereo rectification, image helpers, WGS84 geodesy and
+  IMU preintegration;
 * :mod:`gslam_tpu_torch.ops` — the ORB-style frontend (single-scale and
   pyramid), the Hamming matchers (plain, projection-gated and word-gated)
   and the bag-of-words vocabulary, with the detector, BRIEF sampler, both
@@ -24,8 +26,12 @@ easy to find:
   without IMU, one frame a call or K a dispatch, the K-frame body one
   CUDA graph on the card) and its ``LoopCloser`` (loop closure and
   relocalization);
-* :mod:`gslam_tpu_torch.datasets`, :mod:`gslam_tpu_torch.eval` — the
-  synthetic sequences and ATE / RPE;
+* :mod:`gslam_tpu_torch.datasets`, :mod:`gslam_tpu_torch.app`,
+  :mod:`gslam_tpu_torch.eval` — the synthetic sequences and the TUM RGB-D
+  / monoVO, KITTI, EuRoC, image-folder, video and drone-map players,
+  opened by extension through ``app.registry.open_dataset`` and decoding
+  through the native C library (``datasets/native_loader.py``); ATE /
+  RPE and the TUM / KITTI trajectory files;
 * :mod:`gslam_tpu_torch.convert` — numpy <-> tensor conversion of the
   map (slab, arena, BA and VI problems, IMU factors, pose graph),
   vocabulary, camera, features and matches, so that both packages compute

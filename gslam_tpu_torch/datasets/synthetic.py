@@ -3,11 +3,15 @@
 The port's own numpy copy of ``gslam_tpu/datasets/synthetic.py``: the
 same world, trajectories ("line", "orbit", "ring", "ring_out"), value-
 noise texture with exact per-pixel depth, exposure jitter, stereo and
-IMU windows, giving bit-equal images, depth and poses from the same
-configuration.  The only computation the reference ran in JAX, the
-per-pixel ray table, is the pinhole unprojection in float32, done here
-in numpy in the same order.  Radial distortion needs the OpenCV camera
-model, which is not ported: a ``distortion`` config raises.
+IMU windows and radial distortion, giving bit-equal images, depth and
+poses from the same configuration.  The only computation the reference
+ran in JAX, the per-pixel ray table of the textured backdrop, goes
+through the port's ``Camera.unproject`` on the CPU in float32 (for the
+distorted OpenCV camera its fixed 8-step undistortion).
+
+A ``.synth`` dataset path is a JSON file of ``cfg`` overrides, e.g.
+``{"n_frames": 60, "width": 320, "height": 240, "motion": "orbit"}``;
+the extension "synth" is registered.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import json
 from typing import Optional
 
 import numpy as np
+import torch
 
+from gslam_tpu_torch.app.registry import DATASETS
 from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.datasets.base import Dataset, FrameData
 
@@ -103,7 +109,8 @@ class SyntheticDataset(Dataset):
     ``open``), as the reference's dataset is: ``texture`` ray-casts a
     textured backdrop (plane for "line", cylinder otherwise) with exact
     depth; ``exposure`` jitters the gain; ``stereo`` renders a right
-    view; ``imu`` attaches ground-truth IMU windows."""
+    view; ``imu`` attaches ground-truth IMU windows; ``distortion``
+    [k1, k2] renders through a radially distorted OpenCV camera."""
 
     def __init__(self, **overrides):
         super().__init__()
@@ -121,10 +128,6 @@ class SyntheticDataset(Dataset):
             with open(path) as f:
                 self.cfg.update(json.load(f))
         c = self.cfg
-        if c["distortion"]:
-            raise NotImplementedError(
-                "synthetic distortion needs the OpenCV camera model, which "
-                "is not ported yet (ROADMAP Queue A item 2)")
         rng = np.random.default_rng(c["seed"])
         e = c["world_extent"]
         n = c["n_points"]
@@ -157,16 +160,23 @@ class SyntheticDataset(Dataset):
                                       R_cyl * np.cos(th)], -1)
             self.I_bg = rng.uniform(0.45, 1.0, m)
         W, H = c["width"], c["height"]
-        self.camera = Camera.from_fov(W, H, c["fov_deg"])
+        base = Camera.from_fov(W, H, c["fov_deg"])
+        if c["distortion"]:
+            k1, k2 = float(c["distortion"][0]), float(c["distortion"][1])
+            self.camera = Camera.opencv(W, H, float(base.fx), float(base.fy),
+                                        float(base.cx), float(base.cy),
+                                        k1, k2)
+            self._dist = (k1, k2)
+        else:
+            self.camera = base
+            self._dist = None
         if c["texture"]:
-            # per-pixel z = 1 ray table: the pinhole unprojection in
-            # float32, (u - cx) / fx, as the reference computes it
+            # per-pixel z = 1 ray table through the camera's unproject in
+            # float32 on the CPU (for the distorted camera the iterative
+            # undistortion, once at open time)
             uu, vv = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
             uv = np.stack([uu.ravel(), vv.ravel()], -1).astype(np.float32)
-            p = self.camera.params
-            rays = np.stack([(uv[:, 0] - p[2]) / p[0],
-                             (uv[:, 1] - p[3]) / p[1],
-                             np.ones(len(uv), np.float32)], -1)
+            rays = self.camera.unproject(torch.from_numpy(uv)).numpy()
             self._ray_lut = (rays / rays[:, 2:3]).reshape(H, W, 3) \
                 .astype(np.float32)
             self._tex = _value_noise(c["seed"] + 7)
@@ -191,6 +201,11 @@ class SyntheticDataset(Dataset):
         front = z > 0.5
         xn = pc[:, 0] / np.maximum(z, 1e-6)
         yn = pc[:, 1] / np.maximum(z, 1e-6)
+        if self._dist is not None:
+            k1, k2 = self._dist
+            r2 = xn * xn + yn * yn
+            f = 1.0 + k1 * r2 + k2 * r2 * r2
+            xn, yn = xn * f, yn * f
         u = self.camera.fx * xn + self.camera.cx
         v = self.camera.fy * yn + self.camera.cy
 
@@ -311,3 +326,8 @@ class SyntheticDataset(Dataset):
                          else None,
                          stereo_baseline=baseline,
                          imu=self._imu_window(idx) if c["imu"] else None)
+
+
+@DATASETS.register("synth")
+def _make_synth(**kw) -> SyntheticDataset:
+    return SyntheticDataset(**kw)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gslam_tpu_torch.core.sim3 import sim3_apply
+from gslam_tpu_torch.core.so3 import quat_to_matrix
 from gslam_tpu_torch.estimation.alignment import umeyama_alignment
 
 
@@ -77,6 +78,44 @@ class TrajectoryMetrics(NamedTuple):
     rpe_mean: float
     n_matched: int
     scale: float
+
+
+def save_tum_trajectory(path: str, ts: np.ndarray,
+                        poses_wc: np.ndarray) -> None:
+    """Write a TUM-format trajectory: ``t tx ty tz qx qy qz qw`` a line,
+    cam -> world (the TUM RGB-D benchmark tools' format)."""
+    poses_wc = np.asarray(poses_wc)
+    with open(path, "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n")
+        for t, p in zip(np.asarray(ts), poses_wc):
+            w, x, y, z = p[3:7]  # wxyz -> the file's xyzw
+            f.write(f"{t:.6f} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                    f"{x:.6f} {y:.6f} {z:.6f} {w:.6f}\n")
+
+
+def load_tum_trajectory(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Read a TUM-format trajectory -> (ts (N,), poses_wc (N, 7) with the
+    quaternion as wxyz)."""
+    ts, poses = [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            v = [float(tok) for tok in line.split()]
+            ts.append(v[0])
+            poses.append([v[1], v[2], v[3], v[7], v[4], v[5], v[6]])
+    return np.asarray(ts), np.asarray(poses, np.float32)
+
+
+def save_kitti_trajectory(path: str, poses_wc: np.ndarray) -> None:
+    """Write a KITTI-odometry trajectory: a line of 12 floats per pose,
+    the row-major 3x4 [R|t] cam -> world in float32."""
+    p = torch.as_tensor(np.asarray(poses_wc, np.float32)).reshape(-1, 7)
+    M = torch.cat([quat_to_matrix(p[:, 3:7]), p[:, :3, None]], -1).numpy()
+    with open(path, "w") as f:
+        for m in M:
+            f.write(" ".join(f"{v:.6e}" for v in m.reshape(-1)) + "\n")
 
 
 def evaluate_trajectory(t_est: np.ndarray, p_est: np.ndarray,

@@ -292,6 +292,9 @@ class KeyframeSLAM:
                  uniforms: Optional[Callable[[], torch.Tensor]] = None):
         self.device = require_device(device)
         self.camera = camera
+        # the lens parameters resident on the device now, so that no
+        # host-to-device copy lands inside a batch graph's capture
+        camera.params_on(self.device)
         self.cfg = config or SLAMConfig()
         c = self.cfg
         self.timer = Timer()

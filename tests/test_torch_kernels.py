@@ -21,9 +21,13 @@ import pytest
 import torch
 
 from chip_smoke import (
-    assert_schur_close, ba_case, cost_order, fast_case, matcher_case,
+    FR1_ARGS, LENS_ARGS, LENS_PX_TOL, LENS_RAY_TOL, REMAP_TOL,
+    assert_schur_close, ba_case, border_only, cost_order, fast_case,
+    lens_camera, lens_points, matcher_case, pixel_grid, rotated_rig,
     to_problem, vi_case, without_pad_indices,
 )
+from gslam_tpu_torch.core.camera import Camera
+from gslam_tpu_torch.core.undistort import StereoRectifier, Undistorter, _remap
 from gslam_tpu_torch.ops import frontend, matching
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
 
@@ -770,3 +774,57 @@ def test_vocab_wrapper_rejects_bad_inputs(dev):
     shifted = torch.zeros(7 * 8 + 1, dtype=torch.int32, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
         vocab_k.transform_words_kernel(nodes, shifted.view(7, 8), v, 4, 2)
+
+
+# ---------------------------------------------------------------------------
+# lens models and remaps: plain PyTorch on the card (no kernel of their
+# own), held to the same call on the CPU at a few float32 ulps
+
+
+@pytest.mark.parametrize("model", list(LENS_ARGS))
+def test_lens_model_on_the_card_matches_the_cpu(dev, model):
+    cam = lens_camera(model)
+    p = lens_points(cam, seed=3)
+    uv_c, ok_c = cam.project(p)
+    uv_d, ok_d = cam.project(p.to(dev))
+    grid = torch.from_numpy(pixel_grid())
+    r_c = cam.unproject(grid)
+    r_d = cam.unproject(grid.to(dev)).cpu()
+    fin = torch.isfinite(uv_c).all(-1)
+    assert float((uv_d.cpu() - uv_c)[fin].abs().max()) <= LENS_PX_TOL
+    assert len(border_only(ok_d.cpu().numpy(), ok_c.numpy(), uv_c.numpy(),
+                           640, 480, LENS_PX_TOL)) == 0
+    assert torch.isfinite(r_d).all()
+    assert float((r_d - r_c).abs().max()) <= LENS_RAY_TOL
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (97, 131)])
+def test_remap_on_the_card_matches_the_cpu(dev, shape):
+    H, W = shape
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.random((H, W), dtype=np.float32))
+    m = torch.from_numpy(rng.uniform(-3, max(H, W) + 3, (H, W, 2))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.random((H, W)) > 0.1)
+    ref = _remap(img, m, v)
+    got = _remap(img.to(dev), m.to(dev), v.to(dev)).cpu()
+    assert float((got - ref).abs().max()) <= REMAP_TOL
+    und = Undistorter(Camera.opencv(*FR1_ARGS))
+    img = torch.from_numpy(rng.random((480, 640), dtype=np.float32))
+    ref = und.undistort(img)
+    got = und.undistort(img.to(dev))
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - ref).abs().max()) <= REMAP_TOL
+
+
+def test_stereo_rectifier_on_the_card_matches_the_cpu(dev):
+    R10, c1, T10 = rotated_rig()
+    cam = Camera.opencv(640, 480, 457.0, 457.0, 320.0, 240.0, -0.25, 0.08)
+    rec = StereoRectifier(cam, cam, T10)
+    rng = np.random.default_rng(6)
+    pair = [torch.from_numpy(rng.random((480, 640), dtype=np.float32))
+            for _ in range(2)]
+    ref = rec.rectify(*pair)
+    got = rec.rectify(*[t.to(dev) for t in pair])
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= REMAP_TOL

@@ -265,6 +265,19 @@ VI_SEQUENCE = dict(n_frames=64, n_points=1200, width=640, height=480,
 VI_CFG = dict(FULL_CFG, vi_min_factors=6, kf_min_gap=2, kf_max_gap=6)
 
 
+# chip_smoke.py's distorted run: the hard synthetic gate of
+# tests/test_slam_e2e.py:527-549 at full width, and its TUM-layout run
+# (64 frames of the same scene written to disk and read back)
+DISTORTED_SEQUENCE = dict(n_frames=40, n_points=600, width=640, height=480,
+                          motion="line", depth=True, texture=True,
+                          exposure=0.15, distortion=[-0.25, 0.08])
+DISTORTED_CFG = dict(max_kps=384, fast_threshold=0.08, ba_window=4,
+                     ba_points=512, ba_iters=3, cap_frames=32,
+                     cap_points=8192, cap_obs=32768, local_map_size=768,
+                     kf_max_gap=6)
+TUM_SEQUENCE = dict(DISTORTED_SEQUENCE, n_frames=64)
+
+
 def reference_run(seq: dict, cfg: dict, n_frames: int, batched: bool,
                   with_scale: bool) -> dict:
     """The JAX package's KeyframeSLAM over the first ``n_frames`` frames
@@ -294,6 +307,33 @@ def reference_run(seq: dict, cfg: dict, n_frames: int, batched: bool,
                    gravity_w=None if js.gravity_w is None
                    else np.asarray(js.gravity_w).tolist())
     return out
+
+
+def reference_tum_run(n_frames: int = 64) -> dict:
+    """The JAX package's KeyframeSLAM over chip_smoke.py's TUM-layout
+    files: the port's synthetic frames written by chip_smoke's own writer
+    into a temporary directory, read back through the JAX package's
+    open_dataset (its PIL decode), DISTORTED_CFG; ATE, keyframes,
+    tracked frames."""
+    import tempfile
+
+    from chip_smoke import write_tum_sequence
+    from gslam_tpu.app.registry import open_dataset as j_open
+
+    src = SyntheticDataset(**dict(TUM_SEQUENCE, n_frames=n_frames))
+    src.open("synth://")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = tmp + "/synth_distorted"
+        write_tum_sequence(root, list(src), src.camera)
+        ds = j_open(root + ".tumrgbd")
+        frames = list(ds)
+    js = JSLAM(ds.camera, JConfig(**DISTORTED_CFG))
+    t, gt = run(js, frames)
+    m = j_eval(t, js.positions(), t, gt, with_scale=False)
+    return dict(frames=n_frames, camera=ds.camera.model, ate_m=m.ate_rmse,
+                rpe_m=m.rpe_rmse, keyframes=js._n_frames_host,
+                tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
+                            for s in js.stats))
 
 
 def record_mono_draws(path: str = MONO_DRAWS) -> dict:
@@ -352,6 +392,16 @@ REFERENCE_RUNS = {
     # the visual-inertial run
     "--reference-ate-vi": lambda: reference_run(
         VI_SEQUENCE, VI_CFG, 64, batched=False, with_scale=False),
+    # the hard synthetic gate at full width, one frame a call and 8 a
+    # dispatch
+    "--reference-ate-distorted": lambda: reference_run(
+        DISTORTED_SEQUENCE, DISTORTED_CFG, 40, batched=False,
+        with_scale=False),
+    "--reference-ate-distorted-batched": lambda: reference_run(
+        DISTORTED_SEQUENCE, dict(DISTORTED_CFG, dispatch_batch=8), 40,
+        batched=True, with_scale=False),
+    # the same scene through files in the TUM RGB-D layout
+    "--reference-ate-tum": reference_tum_run,
 }
 
 

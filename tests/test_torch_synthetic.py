@@ -1,6 +1,6 @@
 """The port's synthetic dataset, trajectory evaluation, Umeyama
 alignment, pinhole Camera, Sim(3) group operations and timer against the
-JAX package's.
+JAX package's (the other lens models: test_torch_camera.py).
 
 Tolerances: images, depth maps, ground-truth poses and IMU windows bit
 for bit (the same numpy arithmetic; the ray table's float32 division in
@@ -72,8 +72,15 @@ def test_dataset_json_config_and_distortion(tmp_path):
     a.open(str(p))
     b.open(str(p))
     np.testing.assert_array_equal(next(iter(b)).image, next(iter(a)).image)
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        SyntheticDataset(distortion=[0.1, 0.0]).open("synth://")
+    # radial distortion renders through the OpenCV camera, as in the JAX
+    # package (the textured frames are held in test_torch_datasets.py)
+    d = SyntheticDataset(distortion=[0.1, 0.0], n_frames=1, width=64,
+                         height=48)
+    dj = JData(distortion=[0.1, 0.0], n_frames=1, width=64, height=48)
+    assert d.open("synth://") and dj.open("synth://")
+    assert d.camera.model == dj.camera.model == "opencv"
+    np.testing.assert_array_equal(d.camera.params, dj.camera.params)
+    np.testing.assert_array_equal(next(iter(d)).image, next(iter(dj)).image)
 
 
 def trajectory_pair(rng, n=60):
@@ -160,8 +167,12 @@ def test_pinhole_camera():
     np.testing.assert_allclose(b.unproject(uv_t).numpy(),
                                np.asarray(a.unproject(uv_j)), rtol=1e-6,
                                atol=1e-7)
-    with pytest.raises(NotImplementedError, match="opencv"):
-        Camera("opencv", 64, 48, [1, 1, 1, 1, 0, 0, 0, 0, 0])
+    # the lens models are ported (test_torch_camera.py); an unknown model
+    # raises as in the JAX package
+    assert Camera("opencv", 64, 48, [1, 1, 1, 1, 0, 0, 0, 0, 0]).model \
+        == "opencv"
+    with pytest.raises(ValueError, match="unknown camera model"):
+        Camera("fisheye", 64, 48, [1, 1, 1, 1])
 
 
 def test_timer_sections():
