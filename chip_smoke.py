@@ -144,9 +144,30 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
     feed frames from the far side of the ring and require BoW
     relocalization to bring the pose back through B7;
-15. print the slices' JSON lines (the probes and the extra shapes'
-    times among them), the ``kernels`` JSON line, then the device JSON
-    as the last line.
+15. the other SLAM systems, each run twice with the same ATE bit for
+    bit and launch counters around the first: ``FrameToFrameOdometry``
+    over the 64 frames of phase 4 with depth (PnP) and without (two-view
+    geometry, the JAX package's draws replayed from
+    ``tests/data/odometry_mono_draws.npz``; ATE after Sim3 alignment), B1
+    and B2 once a frame, B3 once a frame after the first, B3 held against
+    its plain version at the 512 x 512 keypoints of frames 0 and 1, then
+    ms/frame in turns (kernels, plain, kernels); ``DirectOdometry`` (plain
+    PyTorch, no kernel) over those 64 frames and over 64 frames of the
+    ``line`` motion, >= 90% of frames valid, device operations a frame and
+    busy share; ``StereoSLAM`` over 48 textured frames of KITTI 00's
+    rectified geometry (1241 x 376, fx 718.856, baseline 0.54 m), two B1
+    and two B2 launches a frame, B4-B6 launched, > 50 map points, B1 held
+    bit for bit at that width; ``GlobalSfM`` over the 10-frame orbit of
+    tests/test_sfm.py (256 x 192; the JAX package's pair draws replayed
+    from ``tests/data/sfm_draws.npz``), B3 once a pair, B5 and B6 in each
+    of three global BA rounds, >= 9 edges, B1, B3 and B5 / B6 held at its
+    shapes (B5 on the global BA's own problem, C = 10); each with the ATE
+    within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run (stereo
+    also under 0.12 m, SfM under 0.30 m);
+16. print the slices' JSON lines (the probes and the extra shapes'
+    times among them), the ``kernels`` JSON line (with each kernel's
+    launches on every phase's main path), then the device JSON as the
+    last line.
 
 Needs a CUDA card, ``nvcc`` and ``g++``; without a card it exits non-zero
 before printing any result.
@@ -156,6 +177,7 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import dataclasses
 import glob
 import json
 import os
@@ -171,7 +193,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gslam_tpu_torch.app.registry import open_dataset
+from gslam_tpu_torch.app.registry import SLAMS, open_dataset
 from gslam_tpu_torch.core.camera import Camera, pinhole_unproject
 from gslam_tpu_torch.core.image import to_gray_f32
 from gslam_tpu_torch.core.imu import preintegrate_full
@@ -185,10 +207,13 @@ from gslam_tpu_torch.datasets import native_loader
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.models import keyframe_slam
+from gslam_tpu_torch.models.direct import DirectConfig, DirectOdometry
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
 from gslam_tpu_torch.models.keyframe_slam import (
     BatchGraph, KeyframeSLAM, SLAMConfig, tensor_leaves,
 )
+from gslam_tpu_torch.models.odometry import FrameToFrameOdometry
+from gslam_tpu_torch.models.sfm import GlobalSfM
 from gslam_tpu_torch.ops import frontend, vocab
 from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher, schur
 from gslam_tpu_torch.ops.cuda import vocab as vocab_k
@@ -196,6 +221,7 @@ from gslam_tpu_torch.ops.matching import (
     gate_squared, hamming_top2, hamming_top2_gated, match_descriptors,
 )
 from gslam_tpu_torch.opt import ba
+from gslam_tpu_torch.opt.robust import huber_weight
 from gslam_tpu_torch.opt.vi import ViProblem, stack_factors
 from gslam_tpu_torch.utils.platform import card_name_and_power_limit
 
@@ -320,6 +346,89 @@ TUM_DEPTH_DT = 0.005
 # --reference-ate-tum``, CPU); an accuracy figure
 REF_ATE_TUM = 0.023739947006106377
 ATE_GATE_TUM = max(0.05, 2.0 * REF_ATE_TUM + 0.01)
+
+# frame-to-frame odometry (BASELINE config #1) over the 64 frames of the
+# KeyframeSLAM cell: depth mode (PnP on the previous frame's depth), then
+# mono mode on the same frames without their depth (two-view geometry,
+# |t| = scale_hint a step, ATE after Sim3 alignment); B1, B2 once a
+# frame, B3 (the all-pairs matcher) once a frame after the first
+ODOM_CFG = dict(max_kps=512, fast_threshold=0.08)
+# ATE (m) of the JAX package's odometry over the same frames (``python
+# tests/test_torch_slam.py --reference-ate-odometry`` and
+# ``--reference-ate-odometry-mono``, CPU); accuracy figures.  The mono
+# run replays that run's draws (``--reference-draws-odometry-mono``
+# writes them): a mono run's outcome turns on its RANSAC draws
+REF_ATE_ODOM = 0.05468263477087021
+REF_ATE_ODOM_MONO = 1.6413596868515015
+ATE_GATE_ODOM = max(0.05, 2.0 * REF_ATE_ODOM + 0.01)
+ATE_GATE_ODOM_MONO = max(0.05, 2.0 * REF_ATE_ODOM_MONO + 0.01)
+ODOM_MONO_DRAWS = Path(__file__).resolve().parent / \
+    "tests/data/odometry_mono_draws.npz"
+
+# stereo SLAM (BASELINE config #3) on KITTI odometry's rectified
+# geometry: 1241 x 376 pixels, fx = fy = 718.856 (KITTI's published
+# calibration of sequence 00, P0; here as a horizontal field of view),
+# baseline 0.54 m; 48 frames of the line motion without depth images,
+# textured, noise 0.01; SLAM_CFG.  The right image runs B1 / B2 too, so
+# two of each a frame; 1241 is not a multiple of 4 (B1's 4-byte loads)
+KITTI00_FX = 718.856
+STEREO_SEQUENCE = dict(n_frames=48, n_points=1200, width=1241, height=376,
+                       fov_deg=2.0 * np.degrees(np.arctan(1241 / 2.0
+                                                          / KITTI00_FX)),
+                       motion="line", depth=False, stereo=True, baseline=0.54,
+                       texture=True, noise=0.01)
+# ATE (m) of the JAX package's StereoSLAM over the same frames (``python
+# tests/test_torch_slam.py --reference-ate-stereo``, CPU); the JAX
+# test's own bar is 0.12 m (tests/test_slam_e2e.py:256)
+REF_ATE_STEREO = 0.009211651049554348
+ATE_BAR_STEREO = 0.12
+ATE_GATE_STEREO = min(max(0.05, 2.0 * REF_ATE_STEREO + 0.01), ATE_BAR_STEREO)
+
+# direct odometry over the 64 frames of the KeyframeSLAM cell with
+# DirectConfig's defaults (1024 points, 3 levels at scale 2, 12 GN steps
+# a level, the depth residual on); plain PyTorch, as the reference is
+# plain jnp.  ATE (m) of the JAX package's run (``python
+# tests/test_torch_slam.py --reference-ate-direct``, CPU)
+REF_ATE_DIRECT = 2.009354591369629
+ATE_GATE_DIRECT = max(0.05, 2.0 * REF_ATE_DIRECT + 0.01)
+# the same system over 64 frames of the line motion at 480 x 640 (VI_
+# SEQUENCE's scene without IMU windows): small motion between frames,
+# the setting a direct method is built for (``--reference-ate-direct-
+# line``)
+DIRECT_LINE_SEQUENCE = dict(n_frames=64, n_points=1200, width=640,
+                            height=480, motion="line", depth=True,
+                            texture=True, noise=0.01)
+REF_ATE_DIRECT_LINE = 0.0019683917053043842
+ATE_GATE_DIRECT_LINE = max(0.05, 2.0 * REF_ATE_DIRECT_LINE + 0.01)
+
+# global SfM over the first 10 frames of tests/test_sfm.py's orbit (SEQ,
+# :24, 256 x 192, 800 points) with the settings of its e2e test (:120):
+# every pair through B3 (384 x 384), global BA through B5 / B6 at C = 10
+# (three rounds).  ATE (m) after Sim3 alignment of the JAX package's run
+# (``python tests/test_torch_slam.py --reference-ate-sfm``, CPU), whose
+# pair draws the run replays (``--reference-draws-sfm`` writes them):
+# the outcome turns on the draws, in both packages
+SFM_SEQUENCE = dict(n_frames=24, n_points=800, width=256, height=192,
+                    motion="orbit", depth=False)
+SFM_FRAMES = 10
+SFM_KW = dict(max_kps=384, fast_threshold=0.08, min_pair_inliers=15,
+              ba_iters=10)
+REF_ATE_SFM = 0.06321600079536438
+ATE_BAR_SFM = 0.30
+ATE_GATE_SFM = min(max(0.05, 2.0 * REF_ATE_SFM + 0.01), ATE_BAR_SFM)
+SFM_DRAWS = Path(__file__).resolve().parent / "tests/data/sfm_draws.npz"
+# the same orbit at the width of the other VGA cells: 640 x 480, 1200
+# points, max_kps 512 (B3 at 512 x 512, B5 / B6 at C = 10 over some 700
+# tracks), the same pair draws (they depend on the seed and the pair
+# count alone).  ATE (m) after Sim3 alignment of the JAX package's run
+# (``python tests/test_torch_slam.py --reference-ate-sfm-wide``, CPU):
+# 2.12 m, lost (a constant trajectory scores 2.92 m; on seeds 0-7 the
+# JAX package gives 0.34-2.12 m, ``python tests/test_torch_sfm.py
+# --seed-spread full``), so 2 ref + 0.01 would pass any answer and the
+# ATE here is printed, not gated; its other gates hold
+SFM_WIDE_SEQUENCE = dict(SFM_SEQUENCE, width=640, height=480, n_points=1200)
+SFM_WIDE_KW = dict(SFM_KW, max_kps=512)
+REF_ATE_SFM_WIDE = 2.123727560043335
 
 # the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
 # package's own loop-closure configuration), stock loop-closer settings
@@ -874,22 +983,59 @@ def cost_order(fields, huber=0.01):
     return tree_sum(fold[None])[0]
 
 
-def assert_schur_close(out_k, out_p, what):
-    """B5's outputs against the plain version's, within
-    tests/test_pallas.py:180-191's tolerances; the max abs error of
-    each."""
+def schur_scales(prob, out_p, huber_delta=0.01):
+    """The magnitude each of B5's per-point outputs is formed from, for
+    tolerances relative to it (float32 rounding scales with it, and
+    points from millimetres to metres deep span eight decades): for W_e
+    the largest entry of the (6, 3) observation block an entry lies in;
+    for Hpp^-1 its (3, 3) block's largest entry times the block's
+    condition (a perturbation dH of Hpp moves the inverse by Hpp^-1 dH
+    Hpp^-1); for bp, a sum over observations that cancels, the sum of
+    its terms' magnitudes with each residual taken as |r| + |uv| (the
+    projection it is the difference of)."""
+    r, _, Jp, valid = ba._project_residual_jac(prob)
+    w = prob.obs_weight * huber_weight(torch.linalg.vector_norm(r, dim=-1),
+                                       huber_delta)
+    w = torch.where(valid, w, torch.zeros_like(w))
+    Jp = Jp * (~prob.point_fixed)[:, None, None, None]
+    bp_terms = torch.einsum("poia,poi->pa", (Jp * w[..., None, None]).abs(),
+                            r.abs() + prob.obs_uv.abs())
+    block = lambda t: t.abs().amax(dim=(-2, -1), keepdim=True)  # noqa: E731
+    Hi = out_p[3].double()
+    hi_scale = block(Hi) ** 2 * block(torch.linalg.inv(Hi))
+    return block(out_p[2].W_e), hi_scale.float(), bp_terms
+
+
+def assert_schur_close(out_k, out_p, prob, what):
+    """B5's outputs against the plain version's on ``prob`` (the problem
+    the plain version ran on); the max abs error of each.  S and b
+    within tests/test_pallas.py:180-191's tolerances; W_e, Hpp^-1 and bp
+    within their absolute tolerances there plus a relative term of each
+    entry's scale (schur_scales): 1e-3 of its block for W_e, 1e-4 for
+    Hpp^-1 and bp.  A block of a far point, whose entries are small, is
+    held at its own scale."""
     (S1, b1, W1, Hi1, bp1), (S0, b0, W0, Hi0, bp0) = out_k, out_p
-    checks = [
-        ("S", S1, S0, 1e-4, 1e-4 * S0.abs().max().item()),
-        ("b", b1, b0, 0.0, 1e-4 * max(b0.abs().max().item(), 1e-6)),
-        ("W_e", W1.W_e, W0.W_e, 0.0, 1e-4),
-        ("Hpp_inv", Hi1, Hi0, 1e-3, 1e-3),
-        ("bp", bp1, bp0, 0.0, 1e-5)]
-    errs = {}
-    for name, k, p, rtol, atol in checks:
-        errs[name] = (k - p).abs().max().item()
+    for name, k, p, rtol, atol in (
+            ("S", S1, S0, 1e-4, 1e-4 * S0.abs().max().item()),
+            ("b", b1, b0, 0.0, 1e-4 * max(b0.abs().max().item(), 1e-6))):
         torch.testing.assert_close(k, p, rtol=rtol, atol=atol,
                                    msg=f"B5 {name} disagrees ({what})")
+    errs = {"S": (S1 - S0).abs().max().item(),
+            "b": (b1 - b0).abs().max().item()}
+    ratios = {}
+    w_scale, hi_scale, bp_scale = schur_scales(prob, out_p)
+    for name, k, p, rtol, atol, scale in (
+            ("W_e", W1.W_e, W0.W_e, 1e-3, 1e-4, w_scale),
+            ("Hpp_inv", Hi1, Hi0, 1e-4, 1e-3, hi_scale),
+            ("bp", bp1, bp0, 1e-4, 1e-5, bp_scale)):
+        err = (k - p).abs()
+        errs[name] = err.max().item()
+        ratios[name] = (err / (atol + rtol * scale)).max().item()
+        if not ratios[name] <= 1.0:
+            raise AssertionError(f"B5 {name} disagrees ({what}): error "
+                                 f"{ratios[name]:.3g} times its tolerance")
+    log(f"B5 ({what}): largest error over its tolerance "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
     return errs
 
 
@@ -1008,6 +1154,31 @@ def check_fast_nms(img, threshold, what):
     assert_same_bits(lambda: fastnms.fast_nms_raw(img, threshold),
                      f"B1 fast_nms ({what})")
     return dict(max_abs_err=err, args=(img, threshold))
+
+
+def check_frame_at(img, threshold, n_kps, what, phase):
+    """B1 (check_fast_nms) and B2 against their plain versions, bit for
+    bit, on one frame of a path's own size at its threshold and its
+    ``n_kps``; the two records, with their timing and the path
+    (``phase``) whose launches their rows report."""
+    fast = check_fast_nms(img, threshold, what)
+    fast["timing"] = (lambda: fastnms.fast_nms_raw(img, threshold),
+                      lambda: fastnms.fast_nms_plain(img, threshold),
+                      fast_work(img, threshold))
+    fast["launched_in"] = [(phase, "fast_nms")]
+    args = brief_inputs(img, n_kps, threshold)[:4]
+    d_k = brief.brief(*args)
+    d_p = frontend.brief_from_rotation(*args)
+    torch.cuda.synchronize()
+    bad_words = (d_k != d_p).sum().item()
+    log(f"B2 brief ({what}, K = {n_kps}): {bad_words} differing words")
+    if bad_words:
+        raise AssertionError(f"BRIEF kernel is not bit-equal ({what})")
+    assert_same_bits(lambda: (brief.brief(*args),), f"B2 brief ({what})")
+    return fast, dict(max_abs_err=0.0, launched_in=[(phase, "brief")],
+                      timing=(lambda: brief.brief(*args),
+                              lambda: frontend.brief_from_rotation(*args),
+                              brief_work(args[0], n_kps)))
 
 
 def phase_check_fast_frame(frame):
@@ -1319,7 +1490,8 @@ def phase_check_slam_kernels():
     S0, b0, W0, Hi0, bp0 = ba.schur_reduce(prob, lam, 0.01)
     torch.cuda.synchronize()
     errs = assert_schur_close((S1, b1, W1, Hi1, bp1),
-                              (S0, b0, W0, Hi0, bp0), "C=8, P=1024, O=8")
+                              (S0, b0, W0, Hi0, bp0), prob,
+                              "C=8, P=1024, O=8")
     log("B5 schur vs plain (C=8, P=1024, O=8): max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     assert_same_bits(lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
@@ -1338,7 +1510,7 @@ def phase_check_slam_kernels():
         out_k = schur.schur_reduce_kernel(wide, lam, 0.01)
         out_p = ba.schur_reduce(plain, lam, 0.01)
         torch.cuda.synchronize()
-        e = assert_schur_close(out_k, out_p, label)
+        e = assert_schur_close(out_k, out_p, plain, label)
         log(f"B5 schur vs plain ({label}): max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
         assert_same_bits(lambda: schur.schur_reduce_kernel(wide, lam, 0.01),
@@ -2774,10 +2946,13 @@ def phase_extra_kernel_times(rec):
         entry, lambda: fastnms.fast_nms_raw(*entry["args"]),
         lambda: fastnms.fast_nms_plain(*entry["args"]),
         fast_work(*entry["args"]))
-    # B1 at the pyramid's level shapes, B2 at their budgets
+    # B1 at the pyramid's level shapes, B2 at their budgets; the other
+    # systems' shapes carry their own (kernel, plain, work)
     for label, entry in rec.items():
         a = entry.get("args")
-        if label.startswith("pyramid_fast_nms_"):
+        if "timing" in entry:
+            pairs[label] = (entry, *entry["timing"])
+        elif label.startswith("pyramid_fast_nms_"):
             pairs[label] = (entry, lambda a=a: fastnms.fast_nms_raw(*a),
                             lambda a=a: fastnms.fast_nms_plain(*a),
                             fast_work(*a))
@@ -2796,6 +2971,430 @@ def phase_extra_kernel_times(rec):
             f"{out[label]['bound_ms']:.6f} ms ({out[label]['bound_by']}); "
             f"launch floor {LAUNCH_FLOOR_MS[0]:.6f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the other SLAM systems: frame-to-frame odometry, stereo, direct, SfM
+
+
+def timed_run(system, frames):
+    """``system.track`` over ``frames``; seconds, the card synchronized
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fr in frames:
+        system.track(fr)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+class ReplayedTwoView:
+    """A ``uniforms`` hook that replays a recorded run's two-view draws
+    in order (``two_view_e`` (n, 256, 8), ``two_view_h`` (n, 256, 4) of
+    an npz that ``tests/test_torch_slam.py`` writes): one pair a call,
+    or with ``n`` the next ``n`` pairs as a list.  Raises when more are
+    asked for than were recorded."""
+
+    def __init__(self, path, device=None):
+        device = device or DEVICE
+        with np.load(path) as d:
+            self.pairs = list(zip(torch.as_tensor(d["two_view_e"],
+                                                  device=device),
+                                  torch.as_tensor(d["two_view_h"],
+                                                  device=device)))
+        self.taken = 0
+
+    def _next(self):
+        if self.taken >= len(self.pairs):
+            raise AssertionError(f"asked for draw {self.taken + 1}; "
+                                 f"{len(self.pairs)} were recorded")
+        self.taken += 1
+        return self.pairs[self.taken - 1]
+
+    def __call__(self, n=None):
+        return self._next() if n is None else [self._next()
+                                                for _ in range(n)]
+
+
+def without_depth(frames):
+    return [dataclasses.replace(fr, depth=None) for fr in frames]
+
+
+def check_matcher_at(desc_a, valid_a, desc_b, valid_b, what):
+    """B3 against its plain version, bit for bit (best, second, index,
+    back and the match decisions), two calls the same bits; the record
+    for timing."""
+    top_k = matcher.hamming_top2_kernel(desc_a, valid_a, desc_b, valid_b)
+    top_p = hamming_top2(desc_a, valid_a, desc_b, valid_b)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(top_k, top_p))
+    m_k = matcher.match_hamming(desc_a, valid_a, desc_b, valid_b)
+    m_p = match_descriptors(desc_a, valid_a, desc_b, valid_b)
+    same = (torch.equal(m_k.idx, m_p.idx) and torch.equal(m_k.valid,
+                                                          m_p.valid))
+    log(f"B3 matcher ({what}): max_abs_err {err:.3g}, {int(m_k.count)} "
+        f"matches, decisions equal {same}")
+    if err != 0.0 or not same:
+        raise AssertionError(f"matcher kernel disagrees ({what})")
+    args = (desc_a, valid_a, desc_b, valid_b)
+    assert_same_bits(lambda: matcher.hamming_top2_kernel(*args),
+                     f"B3 matcher ({what})")
+    return dict(max_abs_err=err, timing=(
+        lambda: matcher.hamming_top2_kernel(*args),
+        lambda: hamming_top2(*args),
+        matcher_work(desc_a.shape[0], desc_b.shape[0])))
+
+
+def run_odometry(camera, frames, use_kernels=True, draws=None):
+    odom = FrameToFrameOdometry(camera, **ODOM_CFG, use_kernels=use_kernels,
+                                device=DEVICE, uniforms=draws)
+    return odom, timed_run(odom, frames)
+
+
+def odometry_record(odom, frames, with_scale):
+    m = slam_metrics(odom, frames, with_scale=with_scale)
+    return dict(ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+                tracked=sum(st["n_inliers"] >= 10 for st in odom.stats),
+                finite=bool(np.isfinite(odom.positions()).all()),
+                inliers=[st["n_inliers"] for st in odom.stats])
+
+
+ODOM_PATH = ("fast_nms", "brief", "matcher")
+
+
+def phase_odometry(camera, frames, rec):
+    """FrameToFrameOdometry over the 64 frames with depth, then without
+    (the JAX package's draws replayed), counters around each: B1 and B2
+    once a frame, B3 once a frame after the first; >= 90% of frames with
+    10 inliers, the ATE gates, each run twice bit for bit; ms/frame in
+    turns (kernels, plain, kernels).  B3 held against its plain version
+    on frames 0 and 1's descriptors."""
+    n = len(frames)
+    f0, f1 = (frontend.extract_features(
+        torch.as_tensor(fr.image, device=DEVICE),
+        max_kps=ODOM_CFG["max_kps"], threshold=ODOM_CFG["fast_threshold"])
+        for fr in frames[:2])
+    entry = check_matcher_at(f0.desc, f0.valid, f1.desc, f1.valid,
+                             "odometry frames 0 and 1")
+    entry["launched_in"] = [("odometry", "matcher"),
+                            ("odometry_mono", "matcher")]
+    rec[f"matcher_odometry_N{f0.desc.shape[0]}_M{f1.desc.shape[0]}"] = entry
+    out, launched = {}, {}
+    for mode, fr_in, with_scale, gate, ref in (
+            ("depth", frames, False, ATE_GATE_ODOM, REF_ATE_ODOM),
+            ("mono", without_depth(frames), True, ATE_GATE_ODOM_MONO,
+             REF_ATE_ODOM_MONO)):
+        draws = ReplayedTwoView(ODOM_MONO_DRAWS) if mode == "mono" else None
+        reset_counts()
+        odom, secs = run_odometry(camera, fr_in, draws=draws)
+        launched[mode] = counts()
+        r = odometry_record(odom, fr_in, with_scale)
+        again = odometry_record(run_odometry(
+            camera, fr_in, draws=ReplayedTwoView(ODOM_MONO_DRAWS)
+            if mode == "mono" else None)[0], fr_in, with_scale)
+        log(f"odometry ({mode}) launches over {n} frames: "
+            f"{launched[mode]} ({secs:.2f} s); {r['tracked']}/{n} frames "
+            f"with 10 inliers, ATE{' after Sim3 alignment' if with_scale else ''}"
+            f" {r['ate_m']!r} m (gate {gate:.4f} m; JAX reference "
+            f"{ref:.6f} m), second run {again['ate_m']!r} m"
+            + (f", {draws.taken} draws replayed" if draws else "")
+            + f"; inliers {r['inliers']}")
+        want = {"fast_nms": n, "brief": n, "matcher": n - 1}
+        got = {k: launched[mode][k] for k in want}
+        if got != want or any(launched[mode][k] for k in launched[mode]
+                              if k not in want):
+            raise AssertionError(f"odometry ({mode}) launches {launched[mode]}"
+                                 f", want {want} and no other kernel")
+        if not r["finite"] or r["tracked"] < 0.9 * n:
+            raise AssertionError(f"odometry ({mode}): {r['tracked']} of {n} "
+                                 "frames tracked, or a trajectory not finite")
+        if not r["ate_m"] <= gate:
+            raise AssertionError(f"odometry ({mode}) ATE {r['ate_m']} m above "
+                                 f"{gate} m")
+        if again["ate_m"] != r["ate_m"]:
+            raise AssertionError(f"odometry ({mode}) second run: ATE "
+                                 f"{again['ate_m']!r} m, first {r['ate_m']!r}")
+        out[mode] = dict(**r, ms_per_frame=secs * 1e3 / n,
+                         split_ms_per_frame=split_ms(odom, n))
+    turns = {}
+    for label, uk in (("kernels", True), ("plain", False),
+                      ("kernels2", True)):
+        odom, secs = run_odometry(camera, frames, use_kernels=uk)
+        turns[label] = dict(ms_per_frame=secs * 1e3 / n,
+                            split_ms_per_frame=split_ms(odom, n))
+        log(f"odometry (depth) {label}: {secs * 1e3 / n:.3f} ms/frame; split "
+            "ms/frame: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     turns[label]["split_ms_per_frame"]
+                                     .items()))
+    out["turns"] = turns
+    return launched, out
+
+
+def phase_stereo(rec):
+    """StereoSLAM over 48 frames of KITTI 00's rectified geometry,
+    counters around it: two B1 and two B2 launches a frame, B4-B6
+    launched, >= 90% tracked, > 50 valid map points, the ATE gates, a
+    second run bit for bit; slam/stereo beside slam/track_fused.  B1 and
+    B2 held bit for bit on the first left and right images (1241
+    columns, K = 512)."""
+    camera, frames, render_s = render(STEREO_SEQUENCE)
+    n = len(frames)
+    H, W = frames[0].image.shape
+    for side, image in (("left", frames[0].image),
+                        ("right", frames[0].image_right)):
+        fast, brf = check_frame_at(
+            torch.as_tensor(image, device=DEVICE), SLAM_CFG["fast_threshold"],
+            SLAM_CFG["max_kps"], f"stereo {side} frame {H}x{W}", "stereo")
+        if side == "left":
+            rec["fast_nms_stereo_frame"] = fast
+            rec[f"brief_stereo_frame_K{SLAM_CFG['max_kps']}"] = brf
+
+    def run():
+        slam = SLAMS.create("stereo", camera, device=DEVICE, **SLAM_CFG)
+        return slam, timed_run(slam, frames)
+
+    reset_counts()
+    slam, secs = run()
+    launched = counts()
+    m = slam_metrics(slam, frames)
+    tracked = tracked_frames(slam)
+    points = int(slam.arena.point_valid.sum())
+    split = split_ms(slam, n)
+    slam2, secs2 = run()
+    ate2 = slam_metrics(slam2, frames).ate_rmse
+    log(f"stereo path launches over {n} frames: {launched} ({secs:.2f} s, "
+        f"{render_s:.1f} s rendering)")
+    log(f"stereo SLAM {STEREO_SEQUENCE['height']}x{STEREO_SEQUENCE['width']}"
+        f": {tracked}/{n} tracked, {slam._n_frames_host} keyframes, "
+        f"{points} valid points, ATE {m.ate_rmse!r} m (gate "
+        f"{ATE_GATE_STEREO:.4f} m; JAX reference {REF_ATE_STEREO:.6f} m), "
+        f"second run {ate2!r} m; {secs * 1e3 / n:.3f} / "
+        f"{secs2 * 1e3 / n:.3f} ms/frame; split ms/frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    missing = [k for k in SLAM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the stereo path never ran: "
+                             f"{missing}")
+    if launched["fast_nms"] != 2 * n or launched["brief"] != 2 * n:
+        raise AssertionError(f"stereo: B1 / B2 launches {launched}, want "
+                             f"{2 * n} each")
+    if not np.isfinite(slam.positions()).all() or tracked < 0.9 * n \
+            or points <= 50:
+        raise AssertionError(f"stereo: {tracked} of {n} tracked, {points} "
+                             "points, or a trajectory not finite")
+    if not m.ate_rmse <= ATE_GATE_STEREO:
+        raise AssertionError(f"stereo ATE {m.ate_rmse} m above "
+                             f"{ATE_GATE_STEREO} m")
+    if ate2 != m.ate_rmse:
+        raise AssertionError(f"stereo second run: ATE {ate2!r} m, first "
+                             f"{m.ate_rmse!r}")
+    return launched, dict(frames=n, tracked=tracked,
+                          keyframes=slam._n_frames_host, valid_points=points,
+                          ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+                          ms_per_frame_runs=[secs * 1e3 / n,
+                                             secs2 * 1e3 / n],
+                          split_ms_per_frame=split, render_s=render_s)
+
+
+def direct_cell(camera, frames, ref, gate, what):
+    """DirectOdometry (defaults) over ``frames``, counters around it (no
+    kernel of B1-B7 on this path): >= 90% of frames with a valid
+    fraction of at least min_valid_frac, the ATE gate, a second run bit
+    for bit; (launches, record, the first run's system)."""
+    n = len(frames)
+    reset_counts()
+    slam = DirectOdometry(camera, DirectConfig(), device=DEVICE)
+    secs = timed_run(slam, frames)
+    launched = counts()
+    m = slam_metrics(slam, frames)
+    c = slam.cfg
+    valid = sum(st["n_inliers"] >= c.min_valid_frac * c.n_points
+                for st in slam.stats)
+    slam2 = DirectOdometry(camera, DirectConfig(), device=DEVICE)
+    secs2 = timed_run(slam2, frames)
+    ate2 = slam_metrics(slam2, frames).ate_rmse
+    split = split_ms(slam, n)
+    log(f"direct ({what}) path launches over {n} frames: {launched} "
+        f"({secs:.2f} s)")
+    log(f"direct odometry ({what}): {valid}/{n} frames with valid fraction "
+        f">= {c.min_valid_frac}, ATE {m.ate_rmse!r} m (gate {gate:.4f} m; "
+        f"JAX reference {ref:.6f} m), RPE {m.rpe_rmse:.6f} m, second run "
+        f"{ate2!r} m; {secs * 1e3 / n:.3f} / {secs2 * 1e3 / n:.3f} ms/frame;"
+        " split ms/frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    if any(launched.values()):
+        raise AssertionError(f"direct odometry ({what}) launched {launched}")
+    if not np.isfinite(slam.positions()).all() or valid < 0.9 * n:
+        raise AssertionError(f"direct ({what}): {valid} of {n} frames valid, "
+                             "or a trajectory not finite")
+    if not m.ate_rmse <= gate:
+        raise AssertionError(f"direct ({what}) ATE {m.ate_rmse} m above "
+                             f"{gate} m")
+    if ate2 != m.ate_rmse:
+        raise AssertionError(f"direct ({what}) second run: ATE {ate2!r} m, "
+                             f"first {m.ate_rmse!r}")
+    return launched, dict(frames=n, valid_frames=valid, ate_m=m.ate_rmse,
+                          rpe_m=m.rpe_rmse,
+                          ms_per_frame_runs=[secs * 1e3 / n,
+                                             secs2 * 1e3 / n],
+                          split_ms_per_frame=split)
+
+
+def phase_direct(camera, frames):
+    """DirectOdometry over the 64 frames of the KeyframeSLAM cell and
+    over 64 frames of the line motion (direct_cell's gates each); the
+    device busy share and device operations a frame over 8 warm frames
+    of the line run."""
+    launched, ring = direct_cell(camera, frames, REF_ATE_DIRECT,
+                                 ATE_GATE_DIRECT, "ring_out")
+    camera_l, frames_l, render_s = render(DIRECT_LINE_SEQUENCE)
+    launched_l, line = direct_cell(camera_l, frames_l, REF_ATE_DIRECT_LINE,
+                                   ATE_GATE_DIRECT_LINE, "line")
+    line["render_s"] = render_s
+    n_prof = min(8, len(frames_l) - 8)
+    warm = DirectOdometry(camera_l, DirectConfig(), device=DEVICE)
+    timed_run(warm, frames_l[:8])
+    it = iter(frames_l[8:8 + n_prof])
+    line["profile"] = device_profile(lambda: warm.track(next(it)), n_prof,
+                                     "DirectOdometry (line)")
+    return launched, dict(ring_out=ring, line=dict(**line,
+                                                   launches=launched_l))
+
+
+SFM_PATH = ("fast_nms", "brief", "matcher", "schur", "ba_cost")
+
+
+def run_sfm(camera, frames, kw, draws, use_kernels=True):
+    """GlobalSfM over ``frames`` and its ``finalize``; (sfm, result,
+    seconds)."""
+    sfm = GlobalSfM(camera, **kw, use_kernels=use_kernels, device=DEVICE,
+                    uniforms=draws)
+    secs = timed_run(sfm, frames)
+    t0 = time.perf_counter()
+    res = sfm.finalize()
+    torch.cuda.synchronize()
+    return sfm, res, secs + time.perf_counter() - t0
+
+
+def sfm_cell(sequence, kw, ref, gate, tag, rec):
+    """GlobalSfM over the first SFM_FRAMES frames of ``sequence`` with
+    the JAX package's pair draws replayed, counters around it: B3 once a
+    pair, B1 / B2 once a frame, B5 ba_iters times and B6 ba_iters + 1
+    times in each of the three global BA rounds (bundle_adjust runs a
+    fixed count, so the totals 3 ba_iters and 3 (ba_iters + 1) with
+    four costs mean every round ran both); >= 9 edges, the ATE after
+    Sim3 alignment within ``gate`` (None: printed beside the JAX
+    reference, not gated), a second run bit for bit; seconds per sfm/*
+    section; then, printed, the plain path on the same draws and the
+    system's own draws.  B1, B2 held bit for bit on the first frame, B3
+    on the pair of frames 0 and 1, B5 / B6 on the global BA's problem."""
+    camera, frames, render_s = render(sequence)
+    frames = frames[:SFM_FRAMES]
+    n, iters = len(frames), kw["ba_iters"]
+    n_pairs = n * (n - 1) // 2
+    img = torch.as_tensor(frames[0].image, device=DEVICE)
+    thr, K = kw["fast_threshold"], kw["max_kps"]
+    H, W = img.shape
+    rec[f"fast_nms_{tag}_frame"], rec[f"brief_{tag}_frame_K{K}"] = \
+        check_frame_at(img, thr, K, f"{tag} frame {H}x{W}", tag)
+    f0, f1 = (frontend.extract_features(
+        torch.as_tensor(fr.image, device=DEVICE), max_kps=K, threshold=thr)
+        for fr in frames[:2])
+    entry = check_matcher_at(f0.desc, f0.valid, f1.desc, f1.valid,
+                             f"{tag} pair 0-1")
+    entry["launched_in"] = [(tag, "matcher")]
+    rec[f"matcher_{tag}_N{f0.desc.shape[0]}_M{f1.desc.shape[0]}"] = entry
+    reset_counts()
+    sfm, res, secs = run_sfm(camera, frames, kw, ReplayedTwoView(SFM_DRAWS))
+    launched = counts()
+    m = slam_metrics(sfm, frames, with_scale=True)
+    sections = {k: v["total"] for k, v in sfm.timer.stats().items()}
+    m2 = slam_metrics(run_sfm(camera, frames, kw,
+                              ReplayedTwoView(SFM_DRAWS))[0],
+                      frames, with_scale=True)
+    plain = slam_metrics(run_sfm(camera, frames, kw,
+                                 ReplayedTwoView(SFM_DRAWS),
+                                 use_kernels=False)[0],
+                         frames, with_scale=True)
+    own, res_own, _ = run_sfm(camera, frames, kw, None)
+    m_own = slam_metrics(own, frames, with_scale=True)
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    spread = float(np.sqrt(((gt - gt.mean(0)) ** 2).sum(1).mean()))
+    prob = sfm.ba_problem
+    log(f"{tag} path launches over {n} frames, {n_pairs} pairs: {launched} "
+        f"({secs:.2f} s, {render_s:.1f} s rendering)")
+    log(f"{tag} {H}x{W}: {res['n_edges']} edges, {prob.point_xyz.shape[0]} "
+        f"tracks of up to {prob.obs_cam.shape[1]} observations "
+        f"({int(prob.obs_valid.sum())} valid), BA costs {sfm.ba_costs}, "
+        f"ATE after Sim3 alignment {m.ate_rmse!r} m (gate "
+        + (f"{gate:.4f} m" if gate is not None else "none")
+        + f"; JAX reference {ref:.6f} m; a constant trajectory "
+        f"{spread:.6f} m), second run {m2.ate_rmse!r} m; the plain path on "
+        f"the same draws (not gated): ATE {plain.ate_rmse!r} m; the "
+        f"system's own draws (not gated): {res_own['n_edges']} edges, ATE "
+        f"{m_own.ate_rmse!r} m; seconds per section: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sections.items()))
+    missing = [k for k in SFM_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the {tag} path never ran: "
+                             f"{missing}")
+    want = {"fast_nms": n, "brief": n, "matcher": n_pairs,
+            "schur": 3 * iters, "ba_cost": 3 * (iters + 1)}
+    if any(launched[k] != v for k, v in want.items()) \
+            or len(sfm.ba_costs) != 4:
+        raise AssertionError(f"{tag} launches {launched}, want {want}; BA "
+                             f"costs {sfm.ba_costs}, want four")
+    if res["n_edges"] < n - 1 or not np.isfinite(res["centers"]).all():
+        raise AssertionError(f"{tag}: {res['n_edges']} edges")
+    if gate is not None and not m.ate_rmse <= gate:
+        raise AssertionError(f"{tag} ATE {m.ate_rmse} m above {gate} m")
+    if m2.ate_rmse != m.ate_rmse:
+        raise AssertionError(f"{tag} second run: ATE {m2.ate_rmse!r} m, "
+                             f"first {m.ate_rmse!r}")
+    # B5 / B6 at the global BA's shape
+    lam = torch.tensor(1e-4, device=DEVICE)
+    label = (f"C{prob.cam_pose.shape[0]}_P{prob.point_xyz.shape[0]}"
+             f"_O{prob.obs_cam.shape[1]}")
+    e = assert_schur_close(schur.schur_reduce_kernel(prob, lam, 0.01),
+                           ba.schur_reduce(prob, lam, 0.01), prob,
+                           f"{tag} {label}")
+    log(f"B5 schur vs plain ({tag} {label}): max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    assert_same_bits(lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
+                     f"B5 schur ({tag} {label})")
+    rec[f"schur_{tag}_{label}"] = dict(
+        max_abs_err=max(e.values()), launched_in=[(tag, "schur")], timing=(
+            lambda: schur.schur_reduce_kernel(prob, lam, 0.01),
+            lambda: ba.schur_reduce(prob, lam, 0.01), schur_work(prob)))
+    cost = check_cost(prob, prob, tuple(x.cpu().numpy() for x in prob),
+                      f"{tag} {label}")
+    cost["timing"] = (lambda: schur.ba_cost_kernel(prob, 0.01),
+                      lambda: ba.ba_cost(prob, 0.01), cost_work(prob))
+    cost["launched_in"] = [(tag, "ba_cost")]
+    rec[f"ba_cost_{tag}_{label}"] = cost
+    return launched, dict(
+        shape=[H, W], frames=n, pairs=n_pairs, edges=res["n_edges"],
+        tracks=int(prob.point_xyz.shape[0]),
+        valid_obs=int(prob.obs_valid.sum()), ba_costs=sfm.ba_costs,
+        ate_m=m.ate_rmse, rpe_m=m.rpe_rmse, ate_gate_m=gate,
+        ref_ate_m=ref, constant_trajectory_ate_m=spread,
+        plain_ate_m=plain.ate_rmse, seconds=secs, section_s=sections,
+        render_s=render_s,
+        own_draws=dict(edges=res_own["n_edges"], ate_m=m_own.ate_rmse))
+
+
+def phase_sfm(rec):
+    """The SfM cell at tests/test_sfm.py's 256 x 192 (ATE gated) and the
+    same frames at 640 x 480 (ATE printed, not gated: the JAX package's
+    own run there is lost, and 2 ref + 0.01 lies above a constant
+    trajectory's ATE); sfm_cell's other gates on both."""
+    launched, small = sfm_cell(SFM_SEQUENCE, SFM_KW, REF_ATE_SFM,
+                               ATE_GATE_SFM, "sfm", rec)
+    launched_w, wide = sfm_cell(SFM_WIDE_SEQUENCE, SFM_WIDE_KW,
+                                REF_ATE_SFM_WIDE, None, "sfm_wide", rec)
+    return {"sfm": launched, "sfm_wide": launched_w}, dict(small=small,
+                                                           wide=wide)
 
 
 def main() -> int:
@@ -2850,6 +3449,12 @@ def main() -> int:
     batch_checks["graph_vs_eager"] = phase_graph_vs_eager(camera, frames)
     batch_times = phase_batch_timing(camera, frames)
     t = phase("track_batch timing", t)
+    launched_odom, odom_checks = phase_odometry(camera, frames[:SLAM_FRAMES],
+                                                rec)
+    t = phase("odometry main path", t)
+    launched_direct, direct_checks = phase_direct(camera,
+                                                  frames[:SLAM_FRAMES])
+    t = phase("direct main path", t)
     del frames
     launched_mono, mono_checks = phase_mono()
     t = phase("mono main path", t)
@@ -2865,6 +3470,10 @@ def main() -> int:
     t = phase("distorted main path", t)
     launched_tum, tum_checks = phase_tum_disk()
     t = phase("TUM RGB-D from disk", t)
+    launched_stereo, stereo_checks = phase_stereo(rec)
+    t = phase("stereo main path", t)
+    launched_sfm, sfm_checks = phase_sfm(rec)
+    t = phase("SfM main path", t)
     rec_v = phase_check_vocab()
     t = phase("check B7", t)
     launched_loop, loop_run = phase_loop()
@@ -2880,7 +3489,23 @@ def main() -> int:
                                     slam_checks["local_ba_runs"])
     b7 = phase_vocab_kernel_times(rec_v, launched, loop_run["keyframes"])
     kern.append(b7["loop"])
+    # launches of each kernel on each phase's main path (the kernels
+    # line's ``launches`` keep the phases named above)
+    by_phase = {"track_forward": launched_track, "keyframe": launched_slam,
+                "pyramid": launched_pyr, "batched": launched_batch,
+                "mono": launched_mono, "vi": launched_vi,
+                "distorted": launched_dist, "tum_disk": launched_tum,
+                "loop": launched_loop, "odometry": launched_odom["depth"],
+                "odometry_mono": launched_odom["mono"],
+                "stereo": launched_stereo, "direct": launched_direct,
+                **launched_sfm}
+    for k in kern:
+        k["launches_by_phase"] = {ph: lau[k["name"]]
+                                  for ph, lau in by_phase.items()}
     extra = phase_extra_kernel_times(rec)
+    for label, r in extra.items():
+        for ph, name in rec.get(label, {}).get("launched_in", ()):
+            r.setdefault("launches", {})[ph] = by_phase[ph][name]
     t = phase("kernel times", t)
     log(json.dumps({"probe": probe, "kernels_at_extra_shapes": extra}))
     log(json.dumps({"slice": "track_forward", "shape": [H, W],
@@ -2921,6 +3546,21 @@ def main() -> int:
     log(json.dumps({"slice": "keyframe_slam_tum_disk",
                     "shape": [TUM_SEQUENCE["height"], TUM_SEQUENCE["width"]],
                     **tum_checks, "launches": launched_tum}))
+    log(json.dumps({"slice": "odometry",
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    "frames": SLAM_FRAMES, **odom_checks,
+                    "launches": launched_odom}))
+    log(json.dumps({"slice": "stereo",
+                    "shape": [STEREO_SEQUENCE["height"],
+                              STEREO_SEQUENCE["width"]],
+                    **stereo_checks, "launches": launched_stereo}))
+    log(json.dumps({"slice": "direct",
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    **direct_checks, "launches": launched_direct}))
+    for cell, checks in sfm_checks.items():
+        log(json.dumps({"slice": "sfm_" + cell, **checks,
+                        "launches": launched_sfm[
+                            "sfm" if cell == "small" else "sfm_wide"]}))
     log(json.dumps({"slice": "loop_closure",
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],

@@ -28,7 +28,8 @@ import torch
 
 from gslam_tpu_torch.core.se3 import se3_make
 from gslam_tpu_torch.core.so3 import (
-    quat_conj, quat_mul, quat_rotate, quat_to_matrix, so3_exp,
+    quat_conj, quat_identity, quat_mul, quat_rotate, quat_to_matrix,
+    so3_exp,
 )
 
 GRAVITY = 9.81
@@ -86,17 +87,11 @@ class ImuFactor(NamedTuple):
     J_p_ba: torch.Tensor  # (3, 3) d(dp)/d(ba)
 
 
-def _quat_identity(like: torch.Tensor) -> torch.Tensor:
-    q = torch.zeros(4, dtype=like.dtype, device=like.device)
-    q[0] = 1.0
-    return q
-
-
 def identity_factor(device="cpu") -> ImuFactor:
     """The factor of an empty window (zero dt, zero information)."""
     z3 = torch.zeros((3, 3), device=device)
     z = torch.zeros(3, device=device)
-    return ImuFactor(dq=_quat_identity(z), dv=z, dp=z,
+    return ImuFactor(dq=quat_identity(device=z.device), dv=z, dp=z,
                      dt=torch.zeros((), device=device),
                      cov=torch.zeros((9, 9), device=device),
                      J_R_bg=z3, J_v_bg=z3, J_v_ba=z3, J_p_bg=z3, J_p_ba=z3)
@@ -125,7 +120,7 @@ def preintegrate(samples: torch.Tensor, valid=None,
     if gyro_bias is not None:
         gyr = gyr - gyro_bias
     dts = _step_dts(samples, valid)
-    q = _quat_identity(samples)
+    q = quat_identity(dtype=samples.dtype, device=samples.device)
     v = samples.new_zeros(3)
     p = samples.new_zeros(3)
     for a, w, dt in zip(acc, gyr, dts):
@@ -166,7 +161,7 @@ def preintegrate_full(samples: torch.Tensor, valid=None,
         (accel_noise ** 2 / dt_s)[:, None].expand(-1, 3)], -1))
 
     z3 = torch.zeros((3, 3), dtype=dt_, device=dev)
-    q = _quat_identity(samples)
+    q = quat_identity(dtype=samples.dtype, device=samples.device)
     v = samples.new_zeros(3)
     p = samples.new_zeros(3)
     cov = torch.zeros((9, 9), dtype=dt_, device=dev)

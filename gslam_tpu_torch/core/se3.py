@@ -9,11 +9,26 @@ from __future__ import annotations
 import torch
 
 from gslam_tpu_torch.core.so3 import (
-    quat_conj, quat_mul, quat_normalize, quat_rotate,
-    so3_exp, so3_log,
+    matrix_to_quat, quat_conj, quat_identity, quat_mul, quat_normalize,
+    quat_rotate, quat_to_matrix, so3_exp, so3_log,
 )
 
 _EPS = 1e-8
+
+
+def se3_identity(shape=(), dtype=torch.float32, device=None
+                 ) -> torch.Tensor:
+    """Identity transforms (*shape, 7): t = 0, q = (1, 0, 0, 0)."""
+    t = torch.zeros((*shape, 3), dtype=dtype, device=device)
+    return torch.cat([t, quat_identity(shape, dtype, device)], dim=-1)
+
+
+def se3_t(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3]
+
+
+def se3_q(T: torch.Tensor) -> torch.Tensor:
+    return T[..., 3:7]
 
 
 def se3_make(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -92,3 +107,15 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     phi = so3_log(q)
     rho = (_so3_left_jacobian_inv(phi) @ t[..., None])[..., 0]
     return torch.cat([rho, phi], dim=-1)
+
+
+def se3_to_matrix(T: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> homogeneous matrices (..., 4, 4)."""
+    top = torch.cat([quat_to_matrix(T[..., 3:7]), T[..., :3, None]], dim=-1)
+    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
+        *T.shape[:-1], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def matrix_to_se3(M: torch.Tensor) -> torch.Tensor:
+    return se3_make(M[..., :3, 3], matrix_to_quat(M[..., :3, :3]))

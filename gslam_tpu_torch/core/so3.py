@@ -12,6 +12,14 @@ import torch
 _EPS = 1e-8
 
 
+def quat_identity(shape=(), dtype=torch.float32, device=None
+                  ) -> torch.Tensor:
+    """Identity quaternions (*shape, 4): (1, 0, 0, 0)."""
+    q = torch.zeros((*shape, 4), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(
         _EPS)

@@ -9,9 +9,18 @@ reference makes from ``key``).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
+
+
+def num_hypotheses(min_set: int, inlier_ratio: float = 0.4,
+                   confidence: float = 0.999, cap: int = 1024) -> int:
+    """Classical RANSAC sample count, rounded up to a multiple of 8."""
+    w = max(1e-3, inlier_ratio) ** min_set
+    n = math.log(max(1e-12, 1.0 - confidence)) / math.log(max(1e-12, 1.0 - w))
+    return min(cap, max(8, int(-(-n // 8) * 8)))
 
 
 def ransac_sample_indices(valid: torch.Tensor, B: int, k: int,

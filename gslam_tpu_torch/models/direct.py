@@ -1,0 +1,329 @@
+"""Direct (photometric) odometry: the SVO / DSO family analog.
+
+Counterpart of ``gslam_tpu/models/direct.py``.  A keyframe contributes a
+fixed slab of ``n_points`` high-gradient pixels with valid depth (one
+top-k over the gradient image), lifted once to keyframe-camera points,
+with their reference intensities sampled per pyramid level.  A frame is
+tracked coarse to fine: per level ``gn_iters`` Gauss-Newton steps warp
+the slab with the current SE(3), sample intensity and gradient
+bilinearly, and solve Huber-weighted 6x6 normal equations, with a
+left-multiplicative update.  With frame depth (``use_depth_residual``)
+the geometric residual z_warp - D_cur(u, v) joins the photometric one
+(DVO-style), which constrains the motion where the image has no texture.
+
+The reference's ``lax.scan`` over GN steps is a Python loop here; the
+arithmetic is the reference's.  Plain PyTorch throughout, as the
+reference is plain jnp (no Pallas kernel).  The host reads the final
+level's valid fraction and photometric error once a frame, where the
+JAX package does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gslam_tpu_torch.app.registry import SLAMS
+from gslam_tpu_torch.core.camera import Camera
+from gslam_tpu_torch.core.se3 import (
+    se3_apply, se3_exp, se3_identity, se3_inverse, se3_mul,
+)
+from gslam_tpu_torch.datasets.base import FrameData
+from gslam_tpu_torch.ops.frontend import (
+    _bilinear, _topk_stable, gaussian_blur, image_pyramid,
+)
+from gslam_tpu_torch.opt.robust import huber_weight
+from gslam_tpu_torch.utils.platform import require_device
+from gslam_tpu_torch.utils.timer import Timer
+
+
+@dataclasses.dataclass
+class DirectConfig:
+    n_points: int = 1024       # tracked high-gradient pixels
+    n_levels: int = 3
+    scale: float = 2.0
+    gn_iters: int = 12         # per level
+    blur_sigma: float = 1.2
+    huber_delta: float = 0.08  # intensity units ([0,1] images)
+    min_depth: float = 0.05
+    max_depth: float = 1e3
+    kf_overlap: float = 0.6    # new keyframe below this valid fraction
+    kf_max_gap: int = 8
+    min_valid_frac: float = 0.25  # below: tracking lost, coast
+    # RGB-D dense mode: add the geometric residual z_warp - D_cur(u,v)
+    # (DVO-style photometric + geometric) when frames carry depth.
+    use_depth_residual: bool = True
+    depth_weight: float = 10.0   # lambda: (sigma_I / sigma_D)^2
+    huber_depth: float = 0.10    # meters
+
+
+def _gradients(img: torch.Tensor):
+    """Central differences, zero on the border rows / columns."""
+    gx = torch.zeros_like(img)
+    gy = torch.zeros_like(img)
+    gx[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
+    gy[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    return gx, gy
+
+
+def _level_intrinsics(cam: Camera, shape, base_shape):
+    """Pixel-centre-correct intrinsics for a resized level."""
+    sy = shape[0] / base_shape[0]
+    sx = shape[1] / base_shape[1]
+    return (cam.fx * sx, cam.fy * sy,
+            (cam.cx + 0.5) * sx - 0.5, (cam.cy + 0.5) * sy - 0.5)
+
+
+def _resize_nearest(depth: torch.Tensor, shape) -> torch.Tensor:
+    """Nearest resize with half-pixel centres, as ``jax.image.resize(...,
+    "nearest")`` (``mode="nearest"`` picks other source pixels)."""
+    return F.interpolate(depth[None, None], size=tuple(shape),
+                         mode="nearest-exact")[0, 0]
+
+
+def _solve_or_nan(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """H^-1 b; NaN where H is singular (``jnp.linalg.solve`` returns
+    non-finite values there, ``torch.linalg.solve`` would raise), with
+    no host read."""
+    x, info = torch.linalg.solve_ex(H, b)
+    return torch.where(info == 0, x, x.new_full((), float("nan")))
+
+
+def _align_level(img, gx, gy, X, I_ref, valid, T_init, iters, fx, fy, cx,
+                 cy, huber, depth=None, dgx=None, dgy=None,
+                 depth_weight: float = 0.0, huber_d: float = 0.1,
+                 use_depth: bool = False):
+    """GN alignment of the point slab X (keyframe-camera coordinates) to
+    one pyramid level: the photometric residual I_cur(warp) - I_ref,
+    plus (RGB-D dense mode) the geometric residual z_warp - D_cur(warp)
+    with the analytic Jacobian dz/dxi - grad(D) . d(u, v)/dxi.  Returns
+    (T_ck, valid fraction, mean absolute photometric residual), 0-d
+    tensors on the device."""
+    H, W = img.shape
+
+    def residual_system(T):
+        pc = se3_apply(T, X)
+        x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+        front = z > 1e-3
+        iz = 1.0 / torch.where(front, z, torch.ones_like(z))
+        u = fx * x * iz + cx
+        v = fy * y * iz + cy
+        inb = (front & valid & (u >= 1.0) & (u <= W - 2.0)
+               & (v >= 1.0) & (v <= H - 2.0))
+        Ic = _bilinear(img, u, v)
+        gu = _bilinear(gx, u, v)
+        gv = _bilinear(gy, u, v)
+        r = Ic - I_ref
+        iz2 = iz * iz
+        zero = torch.zeros_like(x)
+        Ju = fx * torch.stack([iz, zero, -x * iz2, -x * y * iz2,
+                               1.0 + x * x * iz2, -y * iz], -1)
+        Jv = fy * torch.stack([zero, iz, -y * iz2, -(1.0 + y * y * iz2),
+                               x * y * iz2, x * iz], -1)
+        J = gu[:, None] * Ju + gv[:, None] * Jv          # (K, 6)
+        w = huber_weight(r.abs(), huber) * inb
+        out = [(r, J, w)]
+        if use_depth:
+            # nearest sampling: bilinear across a depth discontinuity
+            # invents surfaces; discontinuities and gross disagreements
+            # are gated out
+            ui = torch.round(u).to(torch.int32).clamp(0, W - 1).long()
+            vi = torch.round(v).to(torch.int32).clamp(0, H - 1).long()
+            Dc = depth[vi, ui]
+            du = dgx[vi, ui]
+            dv_ = dgy[vi, ui]
+            r_d = z - Dc
+            d_ok = (inb & (Dc > 1e-3) & torch.isfinite(Dc)
+                    & torch.isfinite(du) & torch.isfinite(dv_)
+                    & (du * du + dv_ * dv_ < 0.25) & (r_d.abs() < 0.5))
+            # gated values are scrubbed, not only zero-weighted: a NaN
+            # depth would poison the normal equations through NaN * 0
+            r_d = torch.where(d_ok, r_d, zero)
+            du = torch.where(d_ok, du, zero)
+            dv_ = torch.where(d_ok, dv_, zero)
+            # dz/dxi (left twist): [0, 0, 1, y, -x, 0]
+            Jz = torch.stack([zero, zero, torch.ones_like(x), y, -x, zero],
+                             -1)
+            J_d = Jz - du[:, None] * Ju - dv_[:, None] * Jv
+            w_d = depth_weight * huber_weight(r_d.abs(), huber_d) * d_ok
+            out.append((r_d, J_d, w_d))
+        return out, inb
+
+    eye = 1e-6 * torch.eye(6, device=X.device)
+    T = T_init
+    for _ in range(iters):
+        terms, _ = residual_system(T)
+        Hm = eye
+        b = torch.zeros(6, device=X.device)
+        for r, J, w in terms:
+            Jw = J * w[:, None]
+            Hm = Hm + Jw.T @ J
+            b = b + Jw.T @ r
+        dx = -_solve_or_nan(Hm, b)
+        T = se3_mul(se3_exp(dx), T)
+    terms, inb = residual_system(T)
+    r = terms[0][0]
+    n = inb.sum().clamp_min(1)
+    frac = inb.sum() / valid.sum().clamp_min(1)
+    err = torch.sum(torch.where(inb, r.abs(), torch.zeros_like(r))) / n
+    return T, frac, err
+
+
+def _select_points(img, depth, n_points, min_depth, max_depth, fx, fy, cx,
+                   cy):
+    """Top-K gradient pixels with valid depth -> (X_kf (K, 3), valid):
+    ties go to the lowest pixel index, as ``lax.top_k``'s."""
+    gx, gy = _gradients(img)
+    mag = gx * gx + gy * gy
+    H, W = img.shape
+    dok = (depth > min_depth) & (depth < max_depth) & torch.isfinite(depth)
+    # keep away from the border so bilinear gathers stay in bounds
+    yy = torch.arange(H, device=img.device)[:, None]
+    xx = torch.arange(W, device=img.device)[None, :]
+    edge = (xx >= 2) & (xx < W - 2) & (yy >= 2) & (yy < H - 2)
+    score = torch.where(dok & edge, mag, mag.new_full((), -1.0)).reshape(-1)
+    val, idx = _topk_stable(score, n_points)
+    u = (idx % W).to(torch.float32)
+    v = (idx // W).to(torch.float32)
+    z = depth.reshape(-1)[idx]
+    X = torch.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+    return X, val > 0.0
+
+
+class DirectOdometry:
+    """``DirectOdometry(camera, DirectConfig(...)).track(frame)`` per
+    frame; returns the cam->world pose (7,) on the device.  Runs on
+    ``device`` (the CUDA card unless the caller asks for the CPU)."""
+
+    def __init__(self, camera: Camera,
+                 config: Optional[DirectConfig] = None, device="cuda"):
+        self.device = require_device(device)
+        self.camera = camera
+        self.cfg = config or DirectConfig()
+        self.timer = Timer()
+        self.pose_wc = se3_identity(device=self.device)
+        self.velocity = se3_identity(device=self.device)  # T_c(t)<-c(t-1)
+        self.kf_pose_cw: Optional[torch.Tensor] = None  # current keyframe
+        self.kf_X: Optional[torch.Tensor] = None        # (K, 3) kf-cam
+        self.kf_valid: Optional[torch.Tensor] = None
+        self.kf_refs: List[torch.Tensor] = []  # per-level intensities
+        self.kf_shapes: List[tuple] = []
+        self.frames_since_kf = 0
+        self.trajectory: List[torch.Tensor] = []
+        self.timestamps: List[float] = []
+        self.stats: List[dict] = []
+
+    def valid(self) -> bool:
+        return True
+
+    # ------------------------------------------------------------------
+    def _pyramid(self, image: torch.Tensor) -> list:
+        img = gaussian_blur(image, sigma=self.cfg.blur_sigma, radius=3)
+        return image_pyramid(img, n_levels=self.cfg.n_levels,
+                             scale=self.cfg.scale)
+
+    def _make_keyframe(self, depth: Optional[torch.Tensor], pyr) -> bool:
+        c = self.cfg
+        if depth is None:
+            return False
+        cam = self.camera
+        base = tuple(pyr[0].shape)
+        X, ok = _select_points(pyr[0], depth, c.n_points, c.min_depth,
+                               c.max_depth, cam.fx, cam.fy, cam.cx, cam.cy)
+        self.kf_X, self.kf_valid = X, ok
+        self.kf_refs = []
+        self.kf_shapes = []
+        for lvl in pyr:
+            fxl, fyl, cxl, cyl = _level_intrinsics(cam, tuple(lvl.shape),
+                                                   base)
+            z = X[:, 2]
+            u = fxl * X[:, 0] / z + cxl
+            v = fyl * X[:, 1] / z + cyl
+            self.kf_refs.append(_bilinear(lvl, u, v))
+            self.kf_shapes.append(tuple(lvl.shape))
+        self.kf_pose_cw = se3_inverse(self.pose_wc)
+        self.frames_since_kf = 0
+        return True
+
+    # ------------------------------------------------------------------
+    def track(self, frame: FrameData) -> torch.Tensor:
+        c = self.cfg
+        depth = None if frame.depth is None else \
+            torch.as_tensor(frame.depth, device=self.device)
+        with self.timer.section("direct/pyramid"):
+            pyr = self._pyramid(torch.as_tensor(frame.image,
+                                                device=self.device))
+            self.timer.block(pyr[0])
+
+        frac = 0.0
+        err = 0.0
+        if self.kf_X is None:
+            self._make_keyframe(depth, pyr)
+        else:
+            # init: constant velocity in the current-camera chain
+            # T_c(t-1)<-kf = T_c(t-1)<-w o T_w<-kf
+            T_ck_prev = se3_mul(se3_inverse(self.pose_wc),
+                                se3_inverse(self.kf_pose_cw))
+            T = se3_mul(self.velocity, T_ck_prev)
+            base = self.kf_shapes[0]
+            use_d = c.use_depth_residual and depth is not None
+            with self.timer.section("direct/align"):
+                for li in range(len(pyr) - 1, -1, -1):
+                    lvl = pyr[li]
+                    gx, gy = _gradients(lvl)
+                    fxl, fyl, cxl, cyl = _level_intrinsics(
+                        self.camera, tuple(lvl.shape), base)
+                    dl = dgx = dgy = None
+                    if use_d:
+                        # nearest resize: bilinear would blur depth
+                        # discontinuities into phantom surfaces
+                        dl = _resize_nearest(depth, lvl.shape)
+                        dgx, dgy = _gradients(dl)
+                    T, fr, er = _align_level(
+                        lvl, gx, gy, self.kf_X, self.kf_refs[li],
+                        self.kf_valid, T, c.gn_iters, fxl, fyl, cxl, cyl,
+                        c.huber_delta, depth=dl, dgx=dgx, dgy=dgy,
+                        depth_weight=c.depth_weight, huber_d=c.huber_depth,
+                        use_depth=use_d)
+                frac, err = torch.stack([fr.to(torch.float32),
+                                         er]).tolist()   # the one fetch
+            if frac >= c.min_valid_frac:
+                pose_cw = se3_mul(T, self.kf_pose_cw)
+                self.velocity = se3_mul(pose_cw, self.pose_wc)
+                self.pose_wc = se3_inverse(pose_cw)
+                self.frames_since_kf += 1
+                if (frac < c.kf_overlap
+                        or self.frames_since_kf >= c.kf_max_gap):
+                    self._make_keyframe(depth, pyr)
+            else:
+                # lost: coast on the motion model, re-anchor
+                self.pose_wc = se3_inverse(se3_mul(
+                    self.velocity, se3_inverse(self.pose_wc)))
+                self._make_keyframe(depth, pyr)
+
+        self.trajectory.append(self.pose_wc)
+        self.timestamps.append(frame.timestamp)
+        self.stats.append({"n_features": int(c.n_points),
+                           "n_matches": int(frac * c.n_points),
+                           "n_inliers": int(frac * c.n_points),
+                           "photo_err": err})
+        return self.pose_wc
+
+    def positions(self) -> np.ndarray:
+        """(N, 3) camera centres, one fetch."""
+        if not self.trajectory:
+            return np.zeros((0, 3))
+        return torch.stack(self.trajectory)[:, :3].cpu().numpy()
+
+
+@SLAMS.register("direct")
+def _make_direct(camera: Camera, device="cuda", **kw) -> DirectOdometry:
+    kw.pop("vocabulary", None)  # direct method: no BoW stage
+    kw = {k: v for k, v in kw.items()
+          if k in DirectConfig.__dataclass_fields__}
+    cfg = DirectConfig(**kw) if kw else None
+    return DirectOdometry(camera, cfg, device=device)

@@ -59,11 +59,14 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from gslam_tpu_torch.app.registry import SLAMS
 from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.core.imu import (
     ImuFactor, compose_factors, identity_factor, preintegrate_full,
 )
-from gslam_tpu_torch.core.se3 import se3_apply, se3_inverse, se3_mul
+from gslam_tpu_torch.core.se3 import (
+    se3_apply, se3_identity, se3_inverse, se3_mul,
+)
 from gslam_tpu_torch.core.sim3 import sim3_from_se3
 from gslam_tpu_torch.core.so3 import quat_conj, quat_to_matrix
 from gslam_tpu_torch.datasets.base import FrameData
@@ -387,8 +390,7 @@ class KeyframeSLAM:
                 self._bow_add(f)
 
     def _identity(self) -> torch.Tensor:
-        return torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32,
-                            device=self.device)
+        return se3_identity(device=self.device)
 
     def _bow_add(self, fid: int) -> None:
         self.loop_closer.add_keyframe(
@@ -1280,3 +1282,13 @@ class KeyframeSLAM:
     def corrected_positions(self) -> np.ndarray:
         tr = self.corrected_trajectory()
         return tr[:, :3] if len(tr) else np.zeros((0, 3))
+
+
+@SLAMS.register("keyframe")
+def _make_keyframe_slam(camera: Camera, device="cuda",
+                        **kw) -> KeyframeSLAM:
+    """``SLAMS.create("keyframe", camera, device=..., **SLAMConfig
+    fields)``; a ``vocabulary`` enables loop closure."""
+    voc = kw.pop("vocabulary", None)
+    cfg = SLAMConfig(**kw) if kw else None
+    return KeyframeSLAM(camera, cfg, vocabulary=voc, device=device)

@@ -159,6 +159,25 @@ def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor,
     return val[..., :k], idx[..., :k]
 
 
+def _bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """Bilinear samples of ``img`` at (x, y): the top-left neighbour
+    clamped into [0, W-2] x [0, H-2] and the fractions into [0, 1], as
+    the reference's ``_bilinear``."""
+    H, W = img.shape
+    x0 = torch.floor(x).to(torch.int32).clamp(0, W - 2)
+    y0 = torch.floor(y).to(torch.int32).clamp(0, H - 2)
+    fx = (x - x0).clamp(0.0, 1.0)
+    fy = (y - y0).clamp(0.0, 1.0)
+    x0, y0 = x0.long(), y0.long()
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return ((v00 * (1 - fx) + v01 * fx) * (1 - fy)
+            + (v10 * (1 - fx) + v11 * fx) * fy)
+
+
 def _gather2d(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor
               ) -> torch.Tensor:
     """``img[yi, xi]`` with the reference's gather rule: negative

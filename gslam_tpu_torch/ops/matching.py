@@ -105,6 +105,12 @@ def match_descriptors(desc_a: torch.Tensor, valid_a: torch.Tensor,
                              mutual=mutual)
 
 
+def match_frames(feat_a, feat_b, **kw) -> Matches:
+    """Match two :class:`~gslam_tpu_torch.ops.frontend.Features` sets."""
+    return match_descriptors(feat_a.desc, feat_a.valid,
+                             feat_b.desc, feat_b.valid, **kw)
+
+
 def gate_squared(gate_radius: float) -> float:
     """The squared gate radius as the reference forms it: the float32
     radius squared in float32."""

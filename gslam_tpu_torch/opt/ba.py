@@ -93,6 +93,15 @@ def _project_residual(problem: BundleProblem):
     return proj - problem.obs_uv, problem.obs_valid & front
 
 
+def reprojection_errors(problem: BundleProblem
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-observation reprojection error norm (P, O) and validity mask
+    (observations behind the camera are invalid), for outlier pruning
+    between BA rounds."""
+    r, valid = _project_residual(problem)
+    return torch.sqrt(torch.sum(r * r, dim=-1)), valid
+
+
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Batched closed-form SPD 3x3 inverse through the Cholesky factor:
     inv(A) = L^-T L^-1 with a closed-form triangular inverse."""

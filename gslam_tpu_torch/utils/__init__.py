@@ -1,1 +1,1 @@
-"""Host utilities: device probes."""
+"""Host utilities: device probes, the section timer and logging."""

@@ -93,3 +93,16 @@ class Timer:
                                    (s.min if s.count else 0.0) * 1e3,
                                    s.max * 1e3))
         return "\n".join(rows)
+
+
+class TicToc:
+    """Ad-hoc stopwatch: ``tic()`` then ``toc()`` (seconds)."""
+
+    def __init__(self):
+        self._t = time.perf_counter()
+
+    def tic(self) -> None:
+        self._t = time.perf_counter()
+
+    def toc(self) -> float:
+        return time.perf_counter() - self._t

@@ -473,7 +473,7 @@ def test_schur_kernel_sparse_repeated_and_padded(dev, C, P, O, window, pads):
     plain = to_problem(without_pad_indices(fields), dev)
     out_p = ba.schur_reduce(plain, lam, 0.01)
     torch.cuda.synchronize()
-    assert_schur_close(out_k, out_p, f"C={C}, P={P}, O={O}")
+    assert_schur_close(out_k, out_p, plain, f"C={C}, P={P}, O={O}")
     for x, y in zip((out_k[0], out_k[1], out_k[2].W_e, out_k[3], out_k[4]),
                     (again[0], again[1], again[2].W_e, again[3], again[4])):
         assert torch.equal(x, y)
@@ -828,3 +828,113 @@ def test_stereo_rectifier_on_the_card_matches_the_cpu(dev):
     got = rec.rectify(*[t.to(dev) for t in pair])
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= REMAP_TOL
+
+
+# -- the other SLAM systems on the card: one short run each ---------------
+
+def small_frames(n, **over):
+    """The first ``n`` frames of a synthetic sequence (12 frames of the
+    192 x 144 line motion unless ``over`` says otherwise)."""
+    from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(**{**dict(n_frames=12, n_points=300, width=192,
+                                    height=144, motion="line", depth=True),
+                             **over})
+    ds.open("synth://")
+    return ds.camera, [ds.grab_frame() for _ in range(n)]
+
+
+def ate(system, frames):
+    from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
+
+    t = np.asarray([fr.timestamp for fr in frames])
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    return evaluate_trajectory(t, system.positions(), t, gt,
+                               with_scale=False).ate_rmse
+
+
+def test_matcher_kernel_on_512_keypoints_of_two_frames(dev):
+    """B3 at the odometry's and SfM's shape: two VGA frames' 512
+    keypoints each, exactly its plain version."""
+    cam, frames = small_frames(2, width=640, height=480, n_points=1200,
+                               texture=True)
+    f0, f1 = (frontend.extract_features(torch.as_tensor(fr.image,
+                                                        device=dev),
+                                        max_kps=512, threshold=0.08)
+              for fr in frames)
+    assert f0.desc.shape == f1.desc.shape == (512, 8)
+    got = matcher.hamming_top2_kernel(f0.desc, f0.valid, f1.desc, f1.valid)
+    ref = matching.hamming_top2(f0.desc, f0.valid, f1.desc, f1.valid)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_odometry_on_the_card(dev):
+    from gslam_tpu_torch.models.odometry import FrameToFrameOdometry
+
+    cam, frames = small_frames(6)
+    runs = {}
+    for uk in (True, False):
+        before = (fastnms.launches, brief.launches, matcher.launches)
+        odom = FrameToFrameOdometry(cam, max_kps=192, fast_threshold=0.1,
+                                    use_kernels=uk, device=dev)
+        for fr in frames:
+            odom.track(fr)
+        after = (fastnms.launches, brief.launches, matcher.launches)
+        runs[uk] = (odom, [a - b for a, b in zip(after, before)])
+    assert runs[True][1] == [6, 6, 5] and runs[False][1] == [0, 0, 0]
+    k, p = runs[True][0], runs[False][0]
+    assert [s["n_matches"] for s in k.stats] == \
+        [s["n_matches"] for s in p.stats]
+    assert min(s["n_inliers"] for s in k.stats[1:]) > 50
+    torch.testing.assert_close(torch.stack(k.trajectory),
+                               torch.stack(p.trajectory), atol=1e-5, rtol=0)
+
+
+def test_stereo_slam_on_the_card(dev):
+    from gslam_tpu_torch.models.keyframe_slam import SLAMConfig
+    from gslam_tpu_torch.models.stereo import StereoSLAM
+
+    cam, frames = small_frames(6, depth=False, stereo=True, n_points=400)
+    before = (fastnms.launches, brief.launches)
+    slam = StereoSLAM(cam, SLAMConfig(max_kps=192, fast_threshold=0.1,
+                                      kf_min_gap=2, kf_max_gap=3),
+                      device=dev)
+    for fr in frames:
+        slam.track(fr)
+    assert (fastnms.launches - before[0], brief.launches - before[1]) == \
+        (12, 12)
+    assert slam._n_frames_host >= 2
+    assert int(slam.arena.point_valid.sum()) > 50
+    assert ate(slam, frames) < 0.12
+
+
+def test_direct_odometry_on_the_card_matches_the_cpu(dev):
+    from gslam_tpu_torch.models.direct import DirectConfig, DirectOdometry
+
+    cam, frames = small_frames(5)
+    out = []
+    for d in (dev, "cpu"):
+        slam = DirectOdometry(cam, DirectConfig(n_points=512), device=d)
+        for fr in frames:
+            slam.track(fr)
+        out.append(torch.stack(slam.trajectory).cpu())
+    torch.testing.assert_close(out[0], out[1], atol=1e-4, rtol=0)
+
+
+def test_sfm_on_the_card(dev):
+    from gslam_tpu_torch.models.sfm import GlobalSfM
+    from gslam_tpu_torch.ops.cuda import schur
+
+    cam, frames = small_frames(5, n_frames=24, width=256, height=192,
+                               n_points=800, motion="orbit", depth=False)
+    before = (matcher.launches, schur.schur_launches, schur.cost_launches)
+    sfm = GlobalSfM(cam, max_kps=384, fast_threshold=0.08,
+                    min_pair_inliers=15, ba_iters=2, device=dev)
+    for fr in frames:
+        sfm.track(fr)
+    res = sfm.finalize()
+    after = (matcher.launches, schur.schur_launches, schur.cost_launches)
+    assert after[0] - before[0] == 10              # one B3 a pair
+    assert after[1] - before[1] == 6 and after[2] - before[2] == 9
+    assert res["n_edges"] >= 4 and np.isfinite(res["centers"]).all()

@@ -373,6 +373,132 @@ def record_mono_draws(path: str = MONO_DRAWS) -> dict:
                             for s in js.stats))
 
 
+def frames_of(seq: dict, n: int, depth: bool = True) -> list:
+    """The JAX package's first ``n`` frames of ``seq``, without their
+    depth images when ``depth`` is False."""
+    import dataclasses
+
+    ds = JData(**seq)
+    ds.open("synth://")
+    frames = [ds.grab_frame() for _ in range(n)]
+    if not depth:
+        frames = [dataclasses.replace(fr, depth=None) for fr in frames]
+    return ds.camera, frames
+
+
+def trajectory_record(system, frames, with_scale: bool, **extra) -> dict:
+    t = np.asarray([fr.timestamp for fr in frames])
+    gt = np.stack([fr.gt_pose[:3] for fr in frames])
+    m = j_eval(t, system.positions(), t, gt, with_scale=with_scale)
+    return dict(frames=len(frames), ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
+                **extra)
+
+
+def reference_odometry(depth: bool, draws_path: str = None) -> dict:
+    """The JAX package's FrameToFrameOdometry over chip_smoke.py's 64
+    frames (with or without depth): ATE (after Sim3 alignment without
+    depth), frames with at least 10 inliers; with ``draws_path``, the
+    run's two-view draws in the order it took them (its key chain split
+    once per call, each key into E and H halves) written there."""
+    from chip_smoke import ODOM_CFG, SLAM_FRAMES
+    from gslam_tpu.models.odometry import FrameToFrameOdometry
+
+    cam, frames = frames_of(FULL_SEQUENCE, SLAM_FRAMES, depth)
+    odom = FrameToFrameOdometry(cam, **ODOM_CFG)
+    keys = []
+    next_key = odom._next_key
+
+    def recorded_key():
+        keys.append(next_key())
+        return keys[-1]
+
+    odom._next_key = recorded_key
+    for fr in frames:
+        odom.track(fr)
+    out = trajectory_record(
+        odom, frames, with_scale=not depth, draws=len(keys),
+        tracked=sum(s["n_inliers"] >= 10 for s in odom.stats),
+        inliers=[s["n_inliers"] for s in odom.stats])
+    if draws_path:
+        halves = [jax.random.split(k) for k in keys]
+        np.savez_compressed(draws_path, two_view_e=np.asarray(
+            [jax.random.uniform(e, (256, 8)) for e, _ in halves], np.float32),
+            two_view_h=np.asarray([jax.random.uniform(h, (256, 4))
+                                   for _, h in halves], np.float32),
+            inliers=np.asarray(out["inliers"], np.int32))
+        out["path"] = draws_path
+    return out
+
+
+def reference_stereo() -> dict:
+    """The JAX package's StereoSLAM over chip_smoke.py's KITTI-shaped
+    stereo frames, SLAM_CFG."""
+    from chip_smoke import STEREO_SEQUENCE
+    from gslam_tpu.models.stereo import StereoSLAM
+
+    cam, frames = frames_of(STEREO_SEQUENCE, STEREO_SEQUENCE["n_frames"])
+    js = StereoSLAM(cam, JConfig(**FULL_CFG))
+    run(js, frames)
+    return trajectory_record(
+        js, frames, with_scale=False, keyframes=js._n_frames_host,
+        tracked=sum(s["n_inliers"] >= js.cfg.min_track_inliers
+                    for s in js.stats),
+        valid_points=int(np.asarray(js.arena.point_valid).sum()))
+
+
+def reference_direct(line: bool) -> dict:
+    """The JAX package's DirectOdometry (defaults) over chip_smoke.py's
+    64 frames, or 64 frames of its line scene (DIRECT_LINE_SEQUENCE)."""
+    from chip_smoke import DIRECT_LINE_SEQUENCE, SLAM_FRAMES
+    from gslam_tpu.models.direct import DirectConfig, DirectOdometry
+
+    seq = DIRECT_LINE_SEQUENCE if line else FULL_SEQUENCE
+    cam, frames = frames_of(seq, SLAM_FRAMES)
+    jd = DirectOdometry(cam, DirectConfig())
+    run(jd, frames)
+    return trajectory_record(
+        jd, frames, with_scale=False,
+        tracked=sum(s["n_inliers"] >= 0.25 * jd.cfg.n_points
+                    for s in jd.stats))
+
+
+def reference_sfm(draws_path: str = None, wide: bool = False) -> dict:
+    """The JAX package's GlobalSfM over chip_smoke.py's orbit frames (its
+    256 x 192 cell, or with ``wide`` its 640 x 480 one): ATE after Sim3
+    alignment, edges; with ``draws_path``, its pair draws (per chunk
+    ``split(key)`` then ``split(sub, len(chunk))``, each pair's key into
+    E and H halves) written there, pair by pair.  The draws depend on
+    the seed and the pair count alone, so both cells share them."""
+    from chip_smoke import (
+        SFM_FRAMES, SFM_KW, SFM_SEQUENCE, SFM_WIDE_KW, SFM_WIDE_SEQUENCE,
+    )
+    from gslam_tpu.models.sfm import GlobalSfM
+
+    cam, frames = frames_of(SFM_WIDE_SEQUENCE if wide else SFM_SEQUENCE,
+                            SFM_FRAMES)
+    sfm = GlobalSfM(cam, **(SFM_WIDE_KW if wide else SFM_KW))
+    key = sfm.key
+    for fr in frames:
+        sfm.track(fr)
+    res = sfm.finalize()
+    out = trajectory_record(sfm, frames, with_scale=True,
+                            edges=res["n_edges"])
+    if draws_path:
+        n_pairs = SFM_FRAMES * (SFM_FRAMES - 1) // 2
+        e, h = [], []
+        for s in range(0, n_pairs, sfm.pair_chunk):
+            key, sub = jax.random.split(key)
+            for k in jax.random.split(sub, min(sfm.pair_chunk,
+                                               n_pairs - s)):
+                ke, kh = jax.random.split(k)
+                e.append(jax.random.uniform(ke, (256, 8)))
+                h.append(jax.random.uniform(kh, (256, 4)))
+        np.savez_compressed(draws_path, two_view_e=np.asarray(e, np.float32),
+                            two_view_h=np.asarray(h, np.float32))
+        out["path"] = draws_path
+    return out
+
+
 REFERENCE_RUNS = {
     # chip_smoke.py's 64-frame cell (bench.py:136-145, one frame a call)
     "--reference-ate": lambda: reference_run(
@@ -402,6 +528,24 @@ REFERENCE_RUNS = {
         batched=True, with_scale=False),
     # the same scene through files in the TUM RGB-D layout
     "--reference-ate-tum": reference_tum_run,
+    # frame-to-frame odometry over the 64 frames, with depth and without
+    "--reference-ate-odometry": lambda: reference_odometry(True),
+    "--reference-ate-odometry-mono": lambda: reference_odometry(False),
+    # the mono run, its draws written for chip_smoke.py's replay
+    "--reference-draws-odometry-mono": lambda: reference_odometry(
+        False, "tests/data/odometry_mono_draws.npz"),
+    # stereo SLAM on KITTI 00's rectified geometry
+    "--reference-ate-stereo": reference_stereo,
+    # direct odometry over the 64 frames, and over 64 frames of the line
+    # motion (chip_smoke.py's DIRECT_LINE_SEQUENCE)
+    "--reference-ate-direct": lambda: reference_direct(False),
+    "--reference-ate-direct-line": lambda: reference_direct(True),
+    # global SfM over 10 orbit frames at 256 x 192, its draws, and the
+    # same frames at 640 x 480
+    "--reference-ate-sfm": reference_sfm,
+    "--reference-ate-sfm-wide": lambda: reference_sfm(wide=True),
+    "--reference-draws-sfm": lambda: reference_sfm(
+        "tests/data/sfm_draws.npz"),
 }
 
 
