@@ -164,13 +164,34 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     shapes (B5 on the global BA's own problem, C = 10); each with the ATE
     within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run (stereo
     also under 0.12 m, SfM under 0.30 m);
-16. print the slices' JSON lines (the probes and the extra shapes'
+16. the fleet (the reference's ``__graft_entry__.dryrun_multichip`` at
+    full width): ``KeyframeSLAM`` over the 64 frames of phase 4 and over
+    64 frames of the same scene from seed 11, the maps merged with
+    ``merge_arenas`` (b placed 50 m along x), launch counters around
+    every run below; global BA over the merged map (every keyframe, 4096
+    points a solve, 16 slots) through the psum variant on a world of one
+    (NCCL), against the plain path on the same map, the keyframe ATE
+    (each sequence SE3-aligned) within ``max(0.05, 2 ref + 0.01)`` of the
+    JAX package's run and the reference's centre test; the ring variant
+    with B5's partials entry and B6 on the merged map's global problem on
+    worlds of 1 (NCCL), 2 and 4 (gloo, every rank on the one card, each
+    hop through the host), each twice for the same bits, against the
+    single-device ``bundle_adjust`` with the kernels (poses 1e-3, costs
+    rtol 0.05); B5's partials entry against its plain version at C = 4,
+    8, 32 and with ring pad cameras, assembled bit for bit
+    ``gslam_schur``'s S and b, over four point blocks within
+    tolerance; ``sharded_track_batch`` of 8 frames at the tracking
+    step's shapes on a world of one, bit for bit 8 ``track_forward``
+    calls;
+17. print the slices' JSON lines (the probes and the extra shapes'
     times among them), the ``kernels`` JSON line (with each kernel's
     launches on every phase's main path), then the device JSON as the
     last line.
 
 Needs a CUDA card, ``nvcc`` and ``g++``; without a card it exits non-zero
-before printing any result.
+before printing any result.  The fleet phase starts its ranks as new
+processes on the same card (``gslam_tpu_torch.parallel.launch.spawn``)
+and waits for each to end.
 """
 
 from __future__ import annotations
@@ -197,12 +218,15 @@ from gslam_tpu_torch.app.registry import SLAMS, open_dataset
 from gslam_tpu_torch.core.camera import Camera, pinhole_unproject
 from gslam_tpu_torch.core.image import to_gray_f32
 from gslam_tpu_torch.core.imu import preintegrate_full
-from gslam_tpu_torch.core.se3 import se3_apply
+from gslam_tpu_torch.core.se3 import se3_apply, se3_inverse
 from gslam_tpu_torch.core.undistort import StereoRectifier, Undistorter
 from gslam_tpu_torch.estimation.pnp import (
     _p3p_grunert, pnp_reproj_error, refine_pose_gn,
 )
 from gslam_tpu_torch.estimation.ransac import run_ransac
+from gslam_tpu_torch.map.arena import (
+    arena_from_numpy, arena_stats, arena_to_numpy, merge_arenas,
+)
 from gslam_tpu_torch.datasets import native_loader
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
@@ -223,6 +247,10 @@ from gslam_tpu_torch.ops.matching import (
 from gslam_tpu_torch.opt import ba
 from gslam_tpu_torch.opt.robust import huber_weight
 from gslam_tpu_torch.opt.vi import ViProblem, stack_factors
+from gslam_tpu_torch.parallel import (
+    dist_ba, distributed_bundle_adjust_ring, launch, make_dp_mesh, make_mesh,
+    sharded_track_batch,
+)
 from gslam_tpu_torch.utils.platform import card_name_and_power_limit
 
 H, W, M, K, B = 480, 640, 2048, 512, 256
@@ -430,6 +458,25 @@ SFM_WIDE_SEQUENCE = dict(SFM_SEQUENCE, width=640, height=480, n_points=1200)
 SFM_WIDE_KW = dict(SFM_KW, max_kps=512)
 REF_ATE_SFM_WIDE = 2.123727560043335
 
+# the fleet cell (the reference's __graft_entry__.dryrun_multichip at full
+# width): the 64-frame cell's sequence (SyntheticDataset's seed 3) and the
+# same scene from the reference's second seed (11), each tracked by
+# KeyframeSLAM, merged with b placed 50 m along x, then global BA over the
+# merged map (every keyframe, at most MAX_CAMS; 4096 points a solve; 16
+# slots a point) through the psum variant on a world of one, and the ring
+# variant with the kernels on the merged map's global problem
+FLEET_SEEDS = (3, 11)
+FLEET_ALIGN = [50.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+FLEET_GBA = dict(iters=4, max_points=4096, max_obs_per_point=16)
+FLEET_RING_ITERS = 8
+FLEET_WORLDS = (1, 2, 4)
+FLEET_TRACK_B = 8
+# keyframe ATE (m, fleet_ate) of the JAX package's fleet run at this size
+# on a CPU (its psum variant on a (1, 1) mesh): ``python
+# tests/test_torch_slam.py --reference-ate-fleet``
+REF_ATE_FLEET = 0.055166078479649834
+ATE_GATE_FLEET = max(0.05, 2.0 * REF_ATE_FLEET + 0.01)
+
 # the two-lap loop-closure run of tests/test_longrun.py:34-54 (the JAX
 # package's own loop-closure configuration), stock loop-closer settings
 LOOP_SEQUENCE = dict(n_frames=1024, n_points=1200, width=640, height=480,
@@ -490,6 +537,10 @@ KERNELS = {
                   replaces="gslam_tpu/ops/pallas/schur.py:292"),
     "ba_cost": dict(source="gslam_tpu_torch/csrc/schur.cu",
                     replaces="gslam_tpu/ops/pallas/schur.py:396"),
+    # B5's partials entry: the same TPU kernel, whose partial outputs the
+    # reference's ring BA sums (partials_from_outs, schur.py:418)
+    "schur_partials": dict(source="gslam_tpu_torch/csrc/schur.cu",
+                           replaces="gslam_tpu/ops/pallas/schur.py:292"),
     "bow_descent": dict(source="gslam_tpu_torch/csrc/vocab.cu",
                         replaces="gslam_tpu/ops/pallas/vocab.py:69"),
 }
@@ -499,10 +550,14 @@ COUNTERS = {"fast_nms": (fastnms, "launches"), "brief": (brief, "launches"),
             "gated_matcher": (matcher, "gated_launches"),
             "schur": (schur, "schur_launches"),
             "ba_cost": (schur, "cost_launches"),
+            "schur_partials": (schur, "partials_launches"),
             "bow_descent": (vocab_k, "launches")}
 TRACK_PATH = ("fast_nms", "brief", "matcher")
 SLAM_PATH = ("fast_nms", "brief", "gated_matcher", "schur", "ba_cost")
 LOOP_PATH = SLAM_PATH + ("bow_descent",)
+# the fleet path: two SLAM runs, the ring BA with the kernels, tracking
+FLEET_PATH = SLAM_PATH + ("schur_partials", "matcher")
+FLEET_RING_PATH = ("schur_partials", "ba_cost")
 
 
 def log(*a) -> None:
@@ -1037,6 +1092,32 @@ def assert_schur_close(out_k, out_p, prob, what):
     log(f"B5 ({what}): largest error over its tolerance "
         + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
     return errs
+
+
+def assert_partials_close(out_k, out_p, prob, what):
+    """B5's partials entry (Hcc, bvec, S_corr, W, Hpp^-1, bp) against its
+    plain version's on ``prob``: S_corr and Hcc as assert_schur_close
+    holds S (rtol 1e-4, atol 1e-4 of the largest entry), bvec as b, W_e,
+    Hpp^-1 and bp under its scale-relative rule; the max abs errors."""
+    Hk, bk, Sk, Wk, Hik, bpk = out_k
+    Hp, bp_, Sp, Wp, Hip, bpp = out_p
+    torch.testing.assert_close(Hk, Hp, rtol=1e-4,
+                               atol=1e-4 * Hp.abs().max().item(),
+                               msg=f"B5 partials Hcc disagrees ({what})")
+    errs = assert_schur_close((Sk, bk.reshape(-1), Wk, Hik, bpk),
+                              (Sp, bp_.reshape(-1), Wp, Hip, bpp), prob,
+                              f"partials, {what}")
+    errs = {"S_corr": errs.pop("S"), "bvec": errs.pop("b"), **errs,
+            "Hcc": (Hk - Hp).abs().max().item()}
+    return errs
+
+
+def assemble_partials(out, lam, cam_fixed):
+    """(S, b_s) from B5 partials (Hcc, bvec, S_corr, ...): damped and
+    pinned as the ring assembles them after the cross-shard sum."""
+    cam_free = ~cam_fixed
+    return ba.assemble_schur(out[0], out[1] * cam_free[:, None], out[2], lam,
+                             cam_free)
 
 
 def assert_same_bits(fn, what):
@@ -1592,6 +1673,21 @@ def slam_metrics(slam, frames, with_scale=False):
     gt = np.stack([fr.gt_pose[:3] for fr in frames])
     return evaluate_trajectory(ts, slam.positions(), ts, gt,
                                with_scale=with_scale)
+
+
+def fleet_ate(centres, times, n_a, gt_a, gt_b):
+    """Keyframe ATE (m) of a merged map: the first ``n_a`` keyframe
+    centres against sequence a's ground truth, the rest against b's
+    (``gt_*`` = (timestamps, positions)), each sequence SE3-aligned on
+    its own (each SLAM world starts at its first camera, and b's was
+    moved by FLEET_ALIGN), the RMS over all keyframes."""
+    sq, n = 0.0, 0
+    for sl, (t_gt, p_gt) in ((slice(0, n_a), gt_a), (slice(n_a, None), gt_b)):
+        m = evaluate_trajectory(times[sl], centres[sl], t_gt, p_gt,
+                                with_scale=False)
+        sq += m.ate_rmse ** 2 * m.n_matched
+        n += m.n_matched
+    return float(np.sqrt(sq / n))
 
 
 def tracked_frames(slam):
@@ -2639,6 +2735,18 @@ def phase_slam_kernel_times(rec, launched, n_frames, ba_runs):
     return time_kernels(calls, work, rec, launched, per)
 
 
+def phase_partials_kernel_time(rec, launched):
+    """B5's partials entry at the fleet ring's per-shard shape (world 4,
+    rank 0) beside its plain version, with its bound; gslam_schur on the
+    same shard is among the extra shapes (``schur_fleet_shard``)."""
+    shard, lam = rec["schur_partials"]["args"]
+    calls = {"schur_partials": (
+        lambda: schur.schur_partials_kernel(shard, lam, 0.01),
+        lambda: schur.schur_partials_plain(shard, lam, 0.01))}
+    return time_kernels(calls, {"schur_partials": schur_work(shard)}, rec,
+                        launched, {"schur_partials": "on the fleet path"})
+
+
 def random_words(rng, n):
     """(n, 8) random descriptors as uint32 words."""
     return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(
@@ -3397,6 +3505,335 @@ def phase_sfm(rec):
                                                            wide=wide)
 
 
+# ---------------------------------------------------------------------------
+# the fleet: two sequences merged, distributed global BA, sharded tracking
+
+
+def fleet_rank(rank, world, job):
+    """One rank of a fleet world (``launch.spawn``): the jobs named in
+    ``job``, on ``job["device"]``, each with the launch counters set to
+    0 just before it and read just after.  ``gba``: global BA over the
+    merged map through the psum variant on a (world, 1) mesh; ``ring``:
+    the ring variant with the kernels on the global problem, twice;
+    ``track``: ``sharded_track_batch`` over a 'dp' mesh."""
+    entered = time.time()        # the rank has started and joined its group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job["device"])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    if "gba" in job:
+        g = job["gba"]
+        arena = arena_from_numpy(g["arena"], device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res, costs = ba.global_bundle_adjust(
+            arena, g["camera"], max_cams=g["n"],
+            mesh=make_mesh((world, 1), device=dev), **g["kw"])
+        sync()
+        out["gba"] = dict(frame_pose=res.frame_pose[:g["n"]],
+                          point_xyz=res.point_xyz, point_valid=res.point_valid,
+                          costs=costs, seconds=time.perf_counter() - t0,
+                          launches=counts())
+    if "ring" in job:
+        r = job["ring"]
+        prob = ba.BundleProblem(*(torch.as_tensor(x, device=dev)
+                                  for x in r["fields"]))
+        mesh = make_mesh((world, 1), device=dev)
+        out["ring"] = []
+        for _ in range(2):
+            reset_counts()
+            dist_ba.ring_hops = 0
+            sync()
+            t0 = time.perf_counter()
+            res, costs = distributed_bundle_adjust_ring(
+                prob, mesh, iters=r["iters"], use_kernels=True)
+            sync()
+            out["ring"].append(dict(
+                cam_pose=res.cam_pose, point_xyz=res.point_xyz, costs=costs,
+                seconds=time.perf_counter() - t0, launches=counts(),
+                hops=dist_ba.ring_hops))
+    if "track" in job:
+        t = job["track"]
+        args = [torch.as_tensor(x, device=dev) for x in t["args"]]
+        reset_counts()
+        poses, n_inl, n_feat = sharded_track_batch(
+            make_dp_mesh(device=dev), *args, **t["kw"])
+        sync()
+        out["track"] = dict(poses=poses, n_inliers=n_inl, n_features=n_feat,
+                            launches=counts())
+    out["clock"] = (entered, time.time())
+    return out
+
+
+def fleet_problem(arena, camera, n_a, n):
+    """The merged map's global problem, as global_bundle_adjust's first
+    solve builds it: every keyframe, the 4096 landmarks with the most
+    observations, 16 slots a point; each sequence's first keyframe
+    fixed (each holds its own gauge)."""
+    dev = arena.device
+    order = ba.landmark_order(arena)[:FLEET_GBA["max_points"]]
+    fixed = torch.zeros(n, dtype=torch.bool, device=dev)
+    fixed[[0, n_a]] = True
+    prob, _ = ba.build_problem_from_arena(
+        arena, torch.arange(n, dtype=torch.int32, device=dev),
+        torch.as_tensor(order.astype(np.int32), device=dev), fixed, camera,
+        max_obs_per_point=FLEET_GBA["max_obs_per_point"])
+    return prob
+
+
+def check_partials(rec, shard):
+    """B5's partials entry against its plain version on ba_case's
+    problems at C = 4, 8, 32 and on a ring shard with pad cameras (C =
+    29 padded to 32, dist_ba.ring_shard), each twice for the same bits;
+    assembled, gslam_schur's S and b bit for bit; the partials of the
+    problem's four ring shards, summed, within tests/test_pallas.py's
+    tolerances of them.  Also on ``shard``, the fleet ring's problem at
+    world 4.  Records for the kernels line and the extra shapes."""
+    lam = torch.tensor(1e-3, device=DEVICE)
+    errs_all = {}
+    for C, P in ((4, 384), (8, 1024), (32, 1024), (29, 1024)):
+        prob = to_problem(ba_case(C, P, 8, seed=2, window=6), DEVICE)
+        label = f"C{C}_P{P}_O8"
+        if C % 4:
+            # rank 1 of a ring of 4: 3 fixed identity cameras appended,
+            # 256 of the points
+            prob = dist_ba.ring_shard(prob, 4, 1)
+            label = f"C{C}+{prob.cam_pose.shape[0] - C}pads_P256_O8"
+        out_k = schur.schur_partials_kernel(prob, lam, 0.01)
+        e = assert_partials_close(out_k, schur.schur_partials_plain(
+            prob, lam, 0.01), prob, label)
+        assert_same_bits(lambda: schur.schur_partials_kernel(prob, lam, 0.01),
+                         f"B5 partials ({label})")
+        S, b = schur.schur_reduce_kernel(prob, lam, 0.01)[:2]
+        S1, b1 = assemble_partials(out_k, lam, prob.cam_fixed)
+        if not (torch.equal(S1, S) and torch.equal(b1, b)):
+            raise AssertionError(f"B5 partials ({label}), assembled: not "
+                                 "gslam_schur's S and b bit for bit")
+        parts = [schur.schur_partials_kernel(dist_ba.ring_shard(prob, 4, r),
+                                             lam, 0.01) for r in range(4)]
+        S4, b4 = assemble_partials([sum(p[i] for p in parts)
+                                    for i in range(3)], lam, prob.cam_fixed)
+        torch.testing.assert_close(S4, S, rtol=1e-4,
+                                   atol=1e-4 * S.abs().max().item())
+        torch.testing.assert_close(b4, b, rtol=0, atol=1e-4 * max(
+            b.abs().max().item(), 1e-6))
+        e["four_blocks_S"] = (S4 - S).abs().max().item()
+        log(f"B5 partials vs plain ({label}): max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in e.items())
+            + "; assembled = gslam_schur bit for bit")
+        errs_all[label] = e
+        rec["schur_partials_" + label] = dict(
+            max_abs_err=max(e.values()),
+            launched_in=[("fleet", "schur_partials")], timing=(
+                lambda p=prob: schur.schur_partials_kernel(p, lam, 0.01),
+                lambda p=prob: schur.schur_partials_plain(p, lam, 0.01),
+                schur_work(prob)))
+    # the fleet ring's shard: its kernels-line entry, and gslam_schur on it
+    e = assert_partials_close(
+        schur.schur_partials_kernel(shard, lam, 0.01),
+        schur.schur_partials_plain(shard, lam, 0.01), shard, "fleet shard")
+    rec["schur_partials"] = dict(max_abs_err=max(e.values()),
+                                 args=(shard, lam))
+    rec["schur_fleet_shard"] = dict(
+        max_abs_err=0.0, launched_in=[("fleet", "schur")], timing=(
+            lambda: schur.schur_reduce_kernel(shard, lam, 0.01),
+            lambda: ba.schur_reduce(shard, lam, 0.01), schur_work(shard)))
+    return errs_all
+
+
+def phase_fleet(rec):
+    """Two sequences tracked, merged and bundle-adjusted across ranks
+    (module docstring, phase 16); launch counters around each run."""
+    t0 = time.perf_counter()
+    seqs = []
+    for seed in FLEET_SEEDS:
+        ds = SyntheticDataset(**dict(SEQUENCE, seed=seed))
+        ds.open("synth://")
+        seqs.append((ds.camera, [ds.grab_frame() for _ in range(SLAM_FRAMES)]))
+    render_s = time.perf_counter() - t0
+    camera = seqs[0][0]
+    reset_counts()
+    slams = [run_slam(cam, frames)[0] for cam, frames in seqs]
+    launched = counts()
+    ates = [slam_metrics(s, fr).ate_rmse for s, (_, fr) in zip(slams, seqs)]
+    n_a, n_b = (s._n_frames_host for s in slams)
+    n = n_a + n_b
+    merged = merge_arenas(slams[0].arena, slams[1].arena,
+                          transform_b=torch.tensor(FLEET_ALIGN,
+                                                   device=DEVICE))
+    log(f"fleet: sequences of seeds {FLEET_SEEDS}, {n_a} + {n_b} keyframes, "
+        f"ATE {ates[0]!r} / {ates[1]!r} m; merged "
+        f"{ta_stats(merged)} ({render_s:.1f} s rendering)")
+    if not 3 <= n <= ba.MAX_CAMS:
+        raise AssertionError(f"fleet: {n} keyframes (3 to {ba.MAX_CAMS})")
+    t1 = time.perf_counter()
+    plain, plain_costs = ba.global_bundle_adjust(
+        merged, camera, max_cams=n, use_kernels=False, **FLEET_GBA)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    prob = fleet_problem(merged, camera, n_a, n)
+    single, st = ba.bundle_adjust(prob, iters=FLEET_RING_ITERS,
+                                  use_kernels=True)
+    img, cam, xyz, desc, valid, _ = example_inputs(H, W, M, K, device=DEVICE)
+    images = torch.stack([img + 1e-4 * i for i in range(FLEET_TRACK_B)])
+    uniforms = torch.rand((FLEET_TRACK_B, B, 4),
+                          generator=torch.Generator().manual_seed(0))
+    per_frame = [track_forward(images[i], cam, xyz, desc, valid,
+                               uniforms=uniforms[i], max_kps=K, ransac_b=B,
+                               device=DEVICE)
+                 for i in range(FLEET_TRACK_B)]
+    errs = check_partials(rec, dist_ba.ring_shard(prob, 4, 0))
+    ring_job = dict(fields=tuple(x.cpu().numpy() for x in prob),
+                    iters=FLEET_RING_ITERS)
+    # the camera without its cache of device copies: a job carries no
+    # CUDA tensor (the ranks make their own)
+    host_camera = Camera(camera.model, camera.width, camera.height,
+                         camera.params)
+    jobs = {1: dict(gba=dict(arena=arena_to_numpy(merged),
+                             camera=host_camera, n=n, kw=FLEET_GBA),
+                    ring=ring_job,
+                    track=dict(args=[x.cpu().numpy() for x in (
+                        images, cam, xyz, desc, valid, uniforms)],
+                        kw=dict(max_kps=K, ransac_b=B)))}
+    worlds, spawn_s = {}, {}
+    for world in FLEET_WORLDS:
+        # a world of one on the card's own backend (NCCL); more ranks on
+        # one card share it through gloo (NCCL takes one rank a card)
+        t1 = time.time()
+        worlds[world] = launch.spawn(
+            fleet_rank, world, device=DEVICE,
+            backend=launch.default_backend(DEVICE) if world == 1 else "gloo",
+            args=(dict(jobs.get(world, dict(ring=ring_job)),
+                       device=DEVICE),), timeout_s=300.0)
+        # wall seconds: until the last rank had joined its group, its
+        # jobs, and from the last rank's end to every process joined
+        t2 = time.time()
+        joined, done = (max(r["clock"][k] for r in worlds[world])
+                        for k in (0, 1))
+        spawn_s[world] = dict(total=t2 - t1, start=joined - t1,
+                              jobs=done - joined, end=t2 - done)
+
+    # psum variant, world of one, against the plain path on the same map
+    g = worlds[1][0]["gba"]
+    for name, got, want in (("costs", g["costs"], plain_costs.cpu()),
+                            ("poses", g["frame_pose"],
+                             plain.frame_pose[:n].cpu())):
+        if name == "costs":
+            torch.testing.assert_close(got, want, rtol=0.05, atol=1e-8)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    same_as_plain = bool(torch.equal(g["costs"], plain_costs.cpu())
+                         and torch.equal(g["frame_pose"],
+                                         plain.frame_pose[:n].cpu()))
+    centres = se3_inverse(g["frame_pose"][:, :7])[:, :3].numpy()
+    times = merged.frame_time[:n].cpu().numpy()
+
+    def gt(frames):
+        return (np.asarray([fr.timestamp for fr in frames]),
+                np.stack([fr.gt_pose[:3] for fr in frames]))
+
+    ate = fleet_ate(centres, times, n_a, gt(seqs[0][1]), gt(seqs[1][1]))
+    px = g["point_xyz"][g["point_valid"]].numpy()
+    log(f"fleet global BA, psum variant, world 1 "
+        f"({launch.default_backend(DEVICE)}): costs "
+        f"{g['costs'].tolist()}, {g['seconds']:.2f} s; plain path "
+        f"{plain_costs.tolist()}, {plain_s:.2f} s; bit for bit the plain "
+        f"path: {same_as_plain}; keyframe ATE {ate!r} m (gate "
+        f"{ATE_GATE_FLEET:.4f} m, JAX reference {REF_ATE_FLEET:.6f} m); "
+        f"centres x: a within {np.abs(centres[:n_a, 0]).max():.3f}, b from "
+        f"{centres[n_a:, 0].min():.3f}; points x up to {px[:, 0].max():.3f}")
+    if not ate <= ATE_GATE_FLEET:
+        raise AssertionError(f"fleet keyframe ATE {ate} m above "
+                             f"{ATE_GATE_FLEET} m")
+    if not (np.abs(centres[:n_a, 0]).max() < 25.0
+            and centres[n_a:, 0].min() > 25.0 and px[:, 0].max() > 25.0):
+        raise AssertionError("fleet: a sequence left its neighbourhood")
+
+    # the ring with the kernels, worlds 1, 2, 4, against bundle_adjust
+    ring = {}
+    for world, res in worlds.items():
+        runs = res[0]["ring"]
+        for r in res[1:]:
+            if not all(torch.equal(x[k], y[k]) for x, y in zip(runs, r["ring"])
+                       for k in ("cam_pose", "point_xyz", "costs")):
+                raise AssertionError(f"ring world {world}: ranks differ")
+        first, again = runs
+        if not all(torch.equal(first[k], again[k])
+                   for k in ("cam_pose", "point_xyz", "costs")):
+            raise AssertionError(f"ring world {world}: two runs differ")
+        torch.testing.assert_close(first["cam_pose"], single.cam_pose.cpu(),
+                                   rtol=0, atol=1e-3)
+        torch.testing.assert_close(first["costs"], st.cost.cpu(), rtol=0.05,
+                                   atol=1e-8)
+        lau = {k: sum(r["ring"][0]["launches"][k] for r in res)
+               for k in KERNELS}
+        if any(lau[k] < 1 for k in FLEET_RING_PATH):
+            raise AssertionError(f"ring world {world}: launches {lau}")
+        ring[world] = dict(
+            pose_gap=(first["cam_pose"] - single.cam_pose.cpu()).abs().max()
+            .item(),
+            cost_gap_rel=((first["costs"] - st.cost.cpu()).abs()
+                          / st.cost.cpu().abs().clamp_min(1e-30)).max().item(),
+            same_bits_as_single=bool(torch.equal(first["cam_pose"],
+                                                 single.cam_pose.cpu())),
+            costs=first["costs"].tolist(),
+            seconds=[x["seconds"] for x in runs],
+            hops=first["hops"], launches=lau, spawn_s=spawn_s[world])
+        log(f"fleet ring world {world} "
+            f"({launch.default_backend(DEVICE) if world == 1 else 'gloo'}): "
+            f"pose gap {ring[world]['pose_gap']:.3g}, cost gap (relative) "
+            f"{ring[world]['cost_gap_rel']:.3g} to bundle_adjust with the "
+            f"kernels (bit for bit: {ring[world]['same_bits_as_single']}); "
+            f"two runs bit for bit; {first['hops']} hops a rank; B5 partials "
+            f"{lau['schur_partials']}, B6 {lau['ba_cost']} launches; "
+            f"{runs[0]['seconds']:.2f} / {runs[1]['seconds']:.2f} s; spawn "
+            + ", ".join(f"{k} {v:.1f}" for k, v in spawn_s[world].items())
+            + " s")
+
+    # sharded tracking, world of one: bit for bit the per-frame step
+    tr = worlds[1][0]["track"]
+    for i, (T, n_inl, n_feat) in enumerate(per_frame):
+        if not (torch.equal(tr["poses"][i], T.cpu())
+                and int(tr["n_inliers"][i]) == int(n_inl)
+                and int(tr["n_features"][i]) == int(n_feat)):
+            raise AssertionError(f"sharded_track_batch frame {i} differs "
+                                 "from track_forward")
+    log(f"sharded_track_batch B={FLEET_TRACK_B} {H}x{W}: bit for bit the "
+        f"{FLEET_TRACK_B} track_forward calls; inliers "
+        f"{tr['n_inliers'].tolist()}; launches {tr['launches']}")
+
+    for part in (worlds[1][0]["gba"]["launches"], tr["launches"],
+                 *(r["ring"][0]["launches"] for res in worlds.values()
+                   for r in res)):
+        for k in launched:
+            launched[k] += part[k]
+    missing = [k for k in FLEET_PATH if launched[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels of the fleet path never ran: "
+                             f"{missing}")
+    return launched, dict(
+        keyframes=[n_a, n_b], sequence_ate_m=ates, keyframe_ate_m=ate,
+        ate_gate_m=ATE_GATE_FLEET, ref_ate_m=REF_ATE_FLEET,
+        gba_costs=g["costs"].tolist(), gba_s=g["seconds"],
+        plain_gba_costs=plain_costs.tolist(), plain_gba_s=plain_s,
+        psum_same_bits_as_plain=same_as_plain,
+        problem=dict(C=n, P=int(prob.point_xyz.shape[0]),
+                     O=int(prob.obs_cam.shape[1])),
+        ring=ring, partials_errors=errs, render_s=render_s,
+        track=dict(inliers=tr["n_inliers"].tolist(),
+                   launches=tr["launches"]))
+
+
+def ta_stats(arena):
+    st = arena_stats(arena)
+    return {k: st[k] for k in ("n_frames", "valid_points", "valid_obs")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -3474,21 +3911,26 @@ def main() -> int:
     t = phase("stereo main path", t)
     launched_sfm, sfm_checks = phase_sfm(rec)
     t = phase("SfM main path", t)
+    launched_fleet, fleet_checks = phase_fleet(rec)
+    t = phase("fleet main path", t)
     rec_v = phase_check_vocab()
     t = phase("check B7", t)
     launched_loop, loop_run = phase_loop()
     t = phase("loop closure main path", t)
 
     # B1, B2, B4-B6 report their launches on the 64-frame SLAM path, B3
-    # on track_forward, B7 on the loop run
+    # on track_forward, B7 on the loop run, B5's partials entry on the
+    # fleet path
     launched = {k: (launched_track[k] if k == "matcher"
                     else launched_loop[k] if k == "bow_descent"
+                    else launched_fleet[k] if k == "schur_partials"
                     else launched_slam[k]) for k in KERNELS}
     kern = phase_kernel_times(rec, launched)
     kern += phase_slam_kernel_times(rec, launched, SLAM_FRAMES,
                                     slam_checks["local_ba_runs"])
     b7 = phase_vocab_kernel_times(rec_v, launched, loop_run["keyframes"])
     kern.append(b7["loop"])
+    kern += phase_partials_kernel_time(rec, launched)
     # launches of each kernel on each phase's main path (the kernels
     # line's ``launches`` keep the phases named above)
     by_phase = {"track_forward": launched_track, "keyframe": launched_slam,
@@ -3498,7 +3940,7 @@ def main() -> int:
                 "loop": launched_loop, "odometry": launched_odom["depth"],
                 "odometry_mono": launched_odom["mono"],
                 "stereo": launched_stereo, "direct": launched_direct,
-                **launched_sfm}
+                **launched_sfm, "fleet": launched_fleet}
     for k in kern:
         k["launches_by_phase"] = {ph: lau[k["name"]]
                                   for ph, lau in by_phase.items()}
@@ -3561,6 +4003,10 @@ def main() -> int:
         log(json.dumps({"slice": "sfm_" + cell, **checks,
                         "launches": launched_sfm[
                             "sfm" if cell == "small" else "sfm_wide"]}))
+    log(json.dumps({"slice": "fleet",
+                    "shape": [SEQUENCE["height"], SEQUENCE["width"]],
+                    "frames": [SLAM_FRAMES] * len(FLEET_SEEDS),
+                    **fleet_checks, "launches": launched_fleet}))
     log(json.dumps({"slice": "loop_closure",
                     "shape": [LOOP_SEQUENCE["height"],
                               LOOP_SEQUENCE["width"]],

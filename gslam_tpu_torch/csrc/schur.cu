@@ -68,6 +68,16 @@
 //   schur_total: 32 entries a block, eight warps each summing every
 //     eighth partial, then the eight sums in warp order; applies the
 //     damping and pinning.
+// The partials entry (gslam_schur_partials) runs the same schur_groups
+// and then schur_partials_total, which sums every entry of the blocks'
+// partials in schur_total's order but neither damps nor pins: it writes
+// S_corr (6C, 6C), Hcc (C, 6, 6) and bvec = bc - b_corr (C, 6), the
+// pieces of one landmark shard that the ring-exchange BA of
+// gslam_tpu_torch/parallel/dist_ba.py sums across shards before it
+// damps and pins (the contract of partials_from_outs in
+// gslam_tpu/ops/pallas/schur.py).  A fixed camera's Jacobian is zero,
+// so its rows of S_corr, Hcc and bvec are zero.  At one shard,
+// assembling them as schur_total does gives schur_total's bits.
 // Records never reach global memory; the scratch is the partials only,
 // at most MAX_PARTIAL_FLOATS (10 MB) however many points there are.
 // What holds it now: the block's critical path, about 10 us of
@@ -703,6 +713,37 @@ schur_total(const float* __restrict__ partial, int n_blocks, int C,
     S[e] = h - acc;
 }
 
+// The blocks' partials summed, every entry in schur_total's order
+// (warp w sums the partials w, w + 8, ..., then the eight sums in warp
+// order), with no damping and no pinning, into S_corr, Hcc and bvec.
+__global__ void __launch_bounds__(T2)
+schur_partials_total(const float* __restrict__ partial, int n_blocks, int C,
+                     float* __restrict__ S_corr, float* __restrict__ Hcc,
+                     float* __restrict__ bvec) {
+    __shared__ float red[T2 / 32][32];
+    const int C6 = 6 * C, n_s = C6 * C6, n_h = 36 * C;
+    const int T = n_s + n_h + C6;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int e = blockIdx.x * 32 + lane;
+    const bool live = e < T;
+    float acc = 0.0f;
+    if (live) {
+        for (int k = warp; k < n_blocks; k += T2 / 32)
+            acc += partial[(size_t)k * T + e];
+    }
+    red[warp][lane] = acc;
+    __syncthreads();
+    if (warp != 0 || !live) return;
+    acc = red[0][lane];
+    for (int w = 1; w < T2 / 32; ++w) acc += red[w][lane];
+    if (e < n_s)
+        S_corr[e] = acc;
+    else if (e < n_s + n_h)
+        Hcc[e - n_s] = acc;
+    else
+        bvec[e - n_s - n_h] = acc;
+}
+
 // Clusters of cost_kernel that have finished the running call, when a
 // call takes more than one; the last one sets it back to 0.
 __device__ unsigned int cost_ticket;
@@ -996,21 +1037,15 @@ extern "C" long long gslam_schur_scratch(int C, int P) {
     return nb * partial_floats(C);
 }
 
-// cam_pose (C, 7) [t, q wxyz], cam_fixed (C,) bool, lam (1,) on the card,
-// pts (P, 3), pt_fixed (P,) bool, cam (P, O) int32, uv (P, O, 2), valid
-// (P, O) bool, weight (P, O); huber the Huber delta.  Outputs: hppinv
-// (P, 3, 3), bp (P, 3), we (P, O, 6, 3), S (6C, 6C) with row (c1*6+a)
-// and column (c2*6+b), b (C, 6).  scratch: gslam_schur_scratch(C, P)
-// floats.  Needs 1 <= C <= 32, P >= 1, 1 <= O <= 1024.  Returns the CUDA
-// error of the launches.
-extern "C" int gslam_schur(const float* cam_pose, const uint8_t* cam_fixed,
-                           const float* lam, const float* pts,
-                           const uint8_t* pt_fixed, const int32_t* cam,
-                           const float* uv, const uint8_t* valid,
-                           const float* weight, int C, int P, int O,
-                           float huber, float* hppinv, float* bp, float* we,
-                           float* S, float* b, float* scratch,
-                           void* stream) {
+// schur_groups over the problem into the partials in scratch; the
+// number of blocks (partials) into *n_blocks.  Returns the CUDA error.
+static int launch_groups(const float* cam_pose, const uint8_t* cam_fixed,
+                         const float* lam, const float* pts,
+                         const uint8_t* pt_fixed, const int32_t* cam,
+                         const float* uv, const uint8_t* valid,
+                         const float* weight, int C, int P, int O,
+                         float huber, float* hppinv, float* bp, float* we,
+                         float* scratch, cudaStream_t s, int* n_blocks) {
     if (C < 1 || C > MAX_CAMS || P < 1 || O < 1 || O > MAX_OBS)
         return static_cast<int>(cudaErrorInvalidValue);
     const Plan pl = schur_plan(C, P, O);
@@ -1027,8 +1062,6 @@ extern "C" int gslam_schur(const float* cam_pose, const uint8_t* cam_fixed,
         if (e != cudaSuccess) return static_cast<int>(e);
         opted_in = true;
     }
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int C6 = 6 * C;
     if (pl.G * O > T5)
         schur_groups<true><<<pl.blocks, T5, pl.smem, s>>>(
             cam_pose, cam_fixed, lam, pts, pt_fixed, cam, uv, valid, weight,
@@ -1037,10 +1070,58 @@ extern "C" int gslam_schur(const float* cam_pose, const uint8_t* cam_fixed,
         schur_groups<false><<<pl.blocks, T5, pl.smem, s>>>(
             cam_pose, cam_fixed, lam, pts, pt_fixed, cam, uv, valid, weight,
             C, P, O, pl.G, huber, hppinv, bp, we, scratch);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    *n_blocks = pl.blocks;
+    return static_cast<int>(cudaGetLastError());
+}
+
+// cam_pose (C, 7) [t, q wxyz], cam_fixed (C,) bool, lam (1,) on the card,
+// pts (P, 3), pt_fixed (P,) bool, cam (P, O) int32, uv (P, O, 2), valid
+// (P, O) bool, weight (P, O); huber the Huber delta.  Outputs: hppinv
+// (P, 3, 3), bp (P, 3), we (P, O, 6, 3), S (6C, 6C) with row (c1*6+a)
+// and column (c2*6+b), b (C, 6).  scratch: gslam_schur_scratch(C, P)
+// floats.  Needs 1 <= C <= 32, P >= 1, 1 <= O <= 1024.  Returns the CUDA
+// error of the launches.
+extern "C" int gslam_schur(const float* cam_pose, const uint8_t* cam_fixed,
+                           const float* lam, const float* pts,
+                           const uint8_t* pt_fixed, const int32_t* cam,
+                           const float* uv, const uint8_t* valid,
+                           const float* weight, int C, int P, int O,
+                           float huber, float* hppinv, float* bp, float* we,
+                           float* S, float* b, float* scratch,
+                           void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int n_blocks = 0;
+    const int err = launch_groups(cam_pose, cam_fixed, lam, pts, pt_fixed,
+                                  cam, uv, valid, weight, C, P, O, huber,
+                                  hppinv, bp, we, scratch, s, &n_blocks);
+    if (err != 0) return err;
+    const int C6 = 6 * C;
     schur_total<<<(C6 * C6 + C6 + 31) / 32, T2, 0, s>>>(
-        scratch, pl.blocks, C, cam_fixed, lam, S, b);
+        scratch, n_blocks, C, cam_fixed, lam, S, b);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same inputs as gslam_schur; outputs hppinv, bp and we as there,
+// and, undamped and unpinned, S_corr (6C, 6C) (row c1*6+a, column
+// c2*6+b), Hcc (C, 6, 6) and bvec = bc - b_corr (C, 6).  scratch:
+// gslam_schur_scratch(C, P) floats.  Returns the CUDA error of the
+// launches.
+extern "C" int gslam_schur_partials(
+        const float* cam_pose, const uint8_t* cam_fixed, const float* lam,
+        const float* pts, const uint8_t* pt_fixed, const int32_t* cam,
+        const float* uv, const uint8_t* valid, const float* weight, int C,
+        int P, int O, float huber, float* hppinv, float* bp, float* we,
+        float* S_corr, float* Hcc, float* bvec, float* scratch,
+        void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int n_blocks = 0;
+    const int err = launch_groups(cam_pose, cam_fixed, lam, pts, pt_fixed,
+                                  cam, uv, valid, weight, C, P, O, huber,
+                                  hppinv, bp, we, scratch, s, &n_blocks);
+    if (err != 0) return err;
+    const int C6 = 6 * C;
+    schur_partials_total<<<(C6 * C6 + 36 * C + C6 + 31) / 32, T2, 0, s>>>(
+        scratch, n_blocks, C, S_corr, Hcc, bvec);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,7 @@
 """Robust estimation: batched RANSAC, P3P / DLT PnP with GN refinement,
 two-view geometry (essential, fundamental and homography matrices,
-triangulation, the H / E bootstrap) and Umeyama alignment.
-
-The JAX package's ``find_sim3``, ``find_affine3d`` and ``find_plane``
-are not ported yet (ROADMAP Queue A item 18).
+triangulation, the H / E bootstrap), Umeyama alignment and the RANSAC
+similarity, affine and plane fits.
 """
 
 from gslam_tpu_torch.estimation.ransac import (  # noqa: F401
@@ -15,4 +13,6 @@ from gslam_tpu_torch.estimation.epipolar import (  # noqa: F401
 )
 from gslam_tpu_torch.estimation.homography import find_homography  # noqa: F401
 from gslam_tpu_torch.estimation.pnp import find_pnp_ransac  # noqa: F401
-from gslam_tpu_torch.estimation.alignment import umeyama_alignment  # noqa: F401
+from gslam_tpu_torch.estimation.alignment import (  # noqa: F401
+    find_affine3d, find_plane, find_sim3, umeyama_alignment,
+)

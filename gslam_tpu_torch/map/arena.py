@@ -16,7 +16,8 @@ the card applies duplicates cannot matter), integer ``.at[].add`` /
 ``argsort(~valid)`` compactions sort an integer key with
 ``stable=True``.  Descriptors are int32 tensors carrying the uint32 bit
 pattern.  Nothing here reads a value back to the host, except
-:func:`arena_stats` and :func:`save_arena`.
+:func:`arena_stats`, :func:`save_arena` and :func:`merge_arenas` (one read
+of the counters).
 """
 
 from __future__ import annotations
@@ -401,6 +402,18 @@ def covis_union_ids(arena: MapArena, frame_id: torch.Tensor,
 # map hygiene
 
 
+def cull_points(arena: MapArena, min_obs: int = 2,
+                min_age_frames: int = 3) -> MapArena:
+    """Erase landmarks older than ``min_age_frames`` keyframes that never
+    gathered ``min_obs`` observations, and their observations."""
+    age = arena.n_frames - arena.point_ref_frame
+    bad = (arena.point_valid & (_obs_count(arena) < min_obs)
+           & (age >= min_age_frames))
+    pv = arena.point_valid & ~bad
+    ov = arena.obs_valid & pv[arena.obs_point.long()]
+    return arena.replace(point_valid=pv, obs_valid=ov)
+
+
 def cull_by_found_ratio(arena: MapArena, min_visible: int = 10,
                         min_ratio: float = 0.1) -> MapArena:
     """Erase landmarks predicted visible in >= ``min_visible`` tracked
@@ -586,3 +599,64 @@ def arena_stats(arena: MapArena) -> dict:
         "valid_obs": int(arena.obs_valid.sum()),
         "overflow": bool(arena.overflow),
     }
+
+
+def merge_arenas(a: MapArena, b: MapArena,
+                 transform_b: Optional[torch.Tensor] = None,
+                 cap_frames: Optional[int] = None,
+                 cap_points: Optional[int] = None,
+                 cap_obs: Optional[int] = None) -> MapArena:
+    """Merge two maps into one arena (multi-session / multi-sequence).
+
+    ``b``'s live slots follow ``a``'s, its frame and point indices
+    offset; ``transform_b`` (Sim3 (8,), e.g. from ``find_sim3``) maps b's
+    world into a's.  Poses are world -> camera, so b's are rebased by
+    RIGHT-composition with T^-1 (a-world -> b-world -> camera), which
+    keeps each frame's camera-coordinate view of its own points; b's
+    points move by T, their normals by T's rotation only.  Capacities
+    default to the sums.  A host-side utility: it reads the six
+    counters back once."""
+    from gslam_tpu_torch.core.sim3 import sim3_apply, sim3_inverse, sim3_mul
+
+    if a.cap_kps != b.cap_kps:
+        raise ValueError(f"kp capacity mismatch {a.cap_kps} != {b.cap_kps}")
+    na_f, nb_f, na_p, nb_p, na_o, nb_o = torch.stack(
+        [a.n_frames, b.n_frames, a.n_points, b.n_points, a.n_obs,
+         b.n_obs]).tolist()
+    F = cap_frames or (a.cap_frames + b.cap_frames)
+    P = cap_points or (a.cap_points + b.cap_points)
+    E = cap_obs or (a.cap_obs + b.cap_obs)
+    if F < na_f + nb_f or P < na_p + nb_p or E < na_o + nb_o:
+        raise ValueError("merged capacities too small for live entries")
+
+    moved = dict(point_ref_frame=b.point_ref_frame + na_f,
+                 obs_frame=b.obs_frame + na_f,
+                 obs_point=b.obs_point + na_p)
+    if transform_b is not None:
+        T = torch.as_tensor(transform_b, dtype=torch.float32,
+                            device=b.device)
+        R_only = torch.cat([torch.zeros_like(T[:3]), T[3:7],
+                            torch.ones_like(T[7:])])
+        moved.update(frame_pose=sim3_mul(b.frame_pose,
+                                         sim3_inverse(T)[None]),
+                     point_xyz=sim3_apply(T[None], b.point_xyz),
+                     point_normal=sim3_apply(R_only[None], b.point_normal))
+
+    out = make_arena(F, a.cap_kps, P, E, device=a.device)
+    counts = {"frame": (na_f, nb_f), "point": (na_p, nb_p),
+              "obs": (na_o, nb_o)}
+    kw = {}
+    for name, buf in out.tensors():
+        axis = name.split("_")[0]
+        if axis not in counts:
+            continue
+        n_a, n_b = counts[axis]
+        buf = buf.clone()
+        buf[:n_a] = getattr(a, name)[:n_a]
+        buf[n_a:n_a + n_b] = moved.get(name, getattr(b, name))[:n_b]
+        kw[name] = buf
+    i32 = dict(dtype=torch.int32, device=a.device)
+    return out.replace(n_frames=torch.tensor(na_f + nb_f, **i32),
+                       n_points=torch.tensor(na_p + nb_p, **i32),
+                       n_obs=torch.tensor(na_o + nb_o, **i32),
+                       overflow=a.overflow | b.overflow, **kw)

@@ -145,12 +145,24 @@ def schur_wt_dxc(W: SchurW, dxc_flat: torch.Tensor) -> torch.Tensor:
 
 
 def schur_partials(prob: BundleProblem, lam: torch.Tensor,
-                   huber_delta: float):
-    """The Schur pieces of one (single-device) problem:
+                   huber_delta: float, n_cams: Optional[int] = None,
+                   obs_psum=None):
+    """The Schur pieces of a problem, or of a shard of one:
     (Hcc (C,6,6) undamped, bc (C,6), S_corr (6C,6C), b_corr (C,6),
-    SchurW, Hpp_inv (P,3,3), bp (P,3))."""
-    C = prob.cam_pose.shape[0]
+    SchurW, Hpp_inv (P,3,3), bp (P,3)).
+
+    ``n_cams`` sizes the camera blocks (the global camera count when
+    ``prob`` is a landmark shard).  ``obs_psum`` sums a per-point
+    partial over the observation shards of its point (the identity when
+    a point's slots are not sharded); it is applied to Hpp, bp and the
+    per-point W before the Hpp inversion and the Schur product, whose
+    cross terms couple a point's slots.  Hcc, bc, S_corr and b_corr are
+    partials that sum over landmark shards (Hcc and bc over observation
+    shards too); damping and pinning of the camera blocks come after
+    that sum (:func:`assemble_schur`)."""
+    C = n_cams or prob.cam_pose.shape[0]
     P, O = prob.obs_cam.shape
+    psum = obs_psum or (lambda x: x)
     cam_free = ~prob.cam_fixed
     pt_free = ~prob.point_fixed
     obs_cam = prob.obs_cam.long()
@@ -163,8 +175,8 @@ def schur_partials(prob: BundleProblem, lam: torch.Tensor,
     Jp = Jp * pt_free[:, None, None, None]
 
     sw = w[..., None, None]
-    Hpp = torch.einsum("poia,poib->pab", Jp * sw, Jp)  # (P, 3, 3)
-    bp = torch.einsum("poia,poi->pa", Jp * sw, r)      # (P, 3)
+    Hpp = psum(torch.einsum("poia,poib->pab", Jp * sw, Jp))  # (P, 3, 3)
+    bp = psum(torch.einsum("poia,poi->pa", Jp * sw, r))      # (P, 3)
     Hcc_e = torch.einsum("poia,poib->poab", Jc * sw, Jc)
     bc_e = torch.einsum("poia,poi->poa", Jc * sw, r)
     onehot = (obs_cam.reshape(-1)[:, None] == torch.arange(
@@ -182,7 +194,7 @@ def schur_partials(prob: BundleProblem, lam: torch.Tensor,
     bc = bc * cam_free[:, None]
 
     G3 = onehot.reshape(P, O, C)
-    Wp = torch.einsum("poc,poab->pcab", G3, W_e)        # (P, C, 6, 3)
+    Wp = psum(torch.einsum("poc,poab->pcab", G3, W_e))  # (P, C, 6, 3)
     Wf = Wp.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     Y = torch.einsum("cpab,pbd->cpad", Wp.permute(1, 0, 2, 3), Hpp_inv)
     Yf = Y.permute(0, 2, 1, 3).reshape(C * 6, P * 3)
@@ -417,6 +429,17 @@ def motion_only_refine(arena, camera, iters: int = 5,
     return arena.replace(frame_pose=fp)
 
 
+def landmark_order(arena) -> np.ndarray:
+    """The valid landmark slots, best constrained (most observations)
+    first, ties by slot; one read back to the host.  Integer adds, so
+    the order of the card's atomics cannot matter."""
+    obs_count = torch.zeros(arena.cap_points, dtype=torch.int64,
+                            device=arena.device).index_add(
+        0, arena.obs_point.long(), arena.obs_valid.to(torch.int64))
+    obs_count = torch.where(arena.point_valid, obs_count, -1).cpu().numpy()
+    return np.argsort(-obs_count, kind="stable")[:int((obs_count >= 0).sum())]
+
+
 def global_bundle_adjust(arena, camera, iters: int = 10,
                          max_cams: Optional[int] = None,
                          max_points: Optional[int] = 4096,
@@ -433,14 +456,14 @@ def global_bundle_adjust(arena, camera, iters: int = 10,
     motion-only pass over all cameras, repeated ``sweeps`` times.  The
     ``n_gauge`` oldest keyframes are held fixed.  The B5 / B6 kernels
     run when :func:`resolve_ba_kernels` allows (at most ``MAX_CAMS``
-    keyframes), the plain Schur path above that.  Returns (arena, the
-    concatenated per-solve cost histories).  Reads the keyframe count,
-    the landmark count and the per-landmark observation counts back to
-    the host, once per call."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "global BA over a device mesh is not ported to gslam_tpu_torch "
-            "yet (ROADMAP Queue A item 15)")
+    keyframes), the plain Schur path above that.  With a ``mesh``
+    (:func:`gslam_tpu_torch.parallel.make_mesh`; every rank of it calls
+    this with the same arena) each solve is
+    :func:`gslam_tpu_torch.parallel.distributed_bundle_adjust` over it,
+    which is plain PyTorch.  Returns (arena, the concatenated per-solve
+    cost histories).  Reads the keyframe count, the landmark count and
+    the per-landmark observation counts back to the host, once per
+    call."""
     dev = arena.device
     n_f = int(arena.n_frames)
     n_p = int(arena.point_valid.sum())
@@ -454,13 +477,7 @@ def global_bundle_adjust(arena, camera, iters: int = 10,
     fixed = torch.arange(C, device=dev) < n_gauge
     kernels = resolve_ba_kernels(use_kernels, C)
 
-    # landmarks ordered best-constrained first (observation count);
-    # integer adds, so the order of the card's atomics cannot matter
-    obs_count = torch.zeros(arena.cap_points, dtype=torch.int64,
-                            device=dev).index_add(
-        0, arena.obs_point.long(), arena.obs_valid.to(torch.int64))
-    obs_count = torch.where(arena.point_valid, obs_count, -1).cpu().numpy()
-    pt_order = np.argsort(-obs_count, kind="stable")[:n_p]
+    pt_order = landmark_order(arena)
 
     budget = n_p if max_points is None else min(max_points, n_p)
     n_chunks = -(-n_p // budget)
@@ -484,10 +501,18 @@ def global_bundle_adjust(arena, camera, iters: int = 10,
                 # observations refines every camera (below)
                 problem = problem._replace(
                     cam_fixed=torch.ones_like(problem.cam_fixed))
-            problem, stats = bundle_adjust(problem, iters=iters,
-                                           use_kernels=kernels)
+            if mesh is not None:
+                from gslam_tpu_torch.parallel.dist_ba import (
+                    distributed_bundle_adjust,
+                )
+                problem, costs = distributed_bundle_adjust(problem, mesh,
+                                                           iters=iters)
+            else:
+                problem, stats = bundle_adjust(problem, iters=iters,
+                                               use_kernels=kernels)
+                costs = stats.cost
             arena = write_back_to_arena(arena, problem, cam_ids, point_ids)
-            costs_all.append(stats.cost)
+            costs_all.append(costs)
         if n_chunks > 1:
             arena = motion_only_refine(arena, camera, iters=iters)
     return arena, torch.cat(costs_all)

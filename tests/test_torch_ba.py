@@ -111,6 +111,46 @@ def test_schur_reduce_matches_pallas_interpret():
 
 
 @pytest.mark.parametrize("C,P,O", [(5, 200, 6), (3, 137, 5)])
+def test_schur_partials_match_the_tpu_kernels_partials(C, P, O):
+    """B5's partials entry (its plain version on CPU tensors) against the
+    TPU kernel's partial outputs as the reference's ring BA reads them
+    (``_schur_call`` in interpret mode, ``partials_from_outs``): Hcc and
+    S_corr as S, bvec as b; assembled, the port's ``schur_reduce`` bit
+    for bit."""
+    from gslam_tpu.opt.ba import BundleProblem as JProblem
+    from chip_smoke import assemble_partials
+
+    prob = make_ba_problem(np.random.default_rng(C + P), C=C, P=P, O=O)
+    inv = jps._prep_invariant(JProblem(jnp.zeros((C, 7)), *prob[1:]),
+                              jps.TILE_P)
+    with jax.default_matmul_precision("highest"):
+        outs = jps._schur_call(
+            inv, jps._pose_rt(prob.cam_pose),
+            jps._points_t(prob.point_xyz, inv["Pp"]), jnp.float32(LAM),
+            C=C, huber_delta=HD, tile_p=jps.TILE_P, interpret=True)
+    ref = jps.partials_from_outs(outs, P, O, C, prob.obs_cam)
+    before = tks.partials_launches
+    t = to_port(prob)
+    got = tks.schur_partials_kernel(t, torch.tensor(LAM), HD)
+    assert tks.partials_launches == before                 # CPU tensors
+    Hcc, bvec, S_corr, W, Hi, bp = (np.asarray(x) for x in (
+        ref[0], ref[1], ref[2], ref[3].W_e, ref[4], ref[5]))
+    for name, k, p, scale in (("Hcc", got[0], Hcc, np.abs(Hcc).max()),
+                              ("S_corr", got[2], S_corr,
+                               np.abs(S_corr).max())):
+        np.testing.assert_allclose(k.numpy(), p, rtol=1e-4,
+                                   atol=1e-4 * scale, err_msg=name)
+    np.testing.assert_allclose(got[1].numpy(), bvec,
+                               atol=1e-4 * max(np.abs(bvec).max(), 1e-6))
+    np.testing.assert_allclose(got[3].W_e.numpy(), W, atol=1e-4)
+    np.testing.assert_allclose(got[4].numpy(), Hi, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got[5].numpy(), bp, atol=1e-5)
+    S, b = tba.schur_reduce(t, torch.tensor(LAM), HD)[:2]
+    S1, b1 = assemble_partials(got, torch.tensor(LAM), t.cam_fixed)
+    assert torch.equal(S1, S) and torch.equal(b1, b)
+
+
+@pytest.mark.parametrize("C,P,O", [(5, 200, 6), (3, 137, 5)])
 def test_ba_cost_matches_reference(C, P, O):
     prob = make_ba_problem(np.random.default_rng(11), C=C, P=P, O=O)
     c_j = float(jba.ba_cost(prob, HD))
@@ -361,12 +401,14 @@ def test_global_bundle_adjust_on_a_carried_arena(max_points):
 
 def test_global_bundle_adjust_edges():
     rng = np.random.default_rng(24)
-    _, t, cam = make_arena_pair(rng)
+    _, _, cam = make_arena_pair(rng)
     tc = cameras(cam)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tba.global_bundle_adjust(t, tc, mesh=object())
     from gslam_tpu_torch.map.arena import make_arena
 
     empty = make_arena(4, 8, 16, 32, device="cpu")
     out, costs = tba.global_bundle_adjust(empty, tc)
+    assert out is empty and costs.shape == (1,)
+    # a mesh routes the solves (tests/test_torch_parallel.py); an arena
+    # with nothing to adjust returns before any solve, mesh or not
+    out, costs = tba.global_bundle_adjust(empty, tc, mesh=object())
     assert out is empty and costs.shape == (1,)

@@ -5,7 +5,8 @@ gslam_tpu_torch.convert, with the reference's RANSAC draws fed to the
 port.  Tolerances: the feature count exactly, the inlier count to +/-1
 and the pose to 1e-4 (float32; see test_torch_pnp.py).
 
-Also, in a fresh interpreter: the port and chip_smoke.py's imports load
+Also, in a fresh interpreter: the port (its distributed layer,
+``gslam_tpu_torch.parallel``, among it) and chip_smoke.py's imports load
 neither JAX nor the JAX package, and the entry points raise when called
 without ``device=`` on a machine without a card.
 """
@@ -96,6 +97,9 @@ CHECK = textwrap.dedent("""
                                    "gslam_tpu_torch."):
         importlib.import_module(m.name)
     import chip_smoke  # noqa: F401  (its imports; main() is not run)
+    for m in ("parallel", "parallel.mesh", "parallel.launch",
+              "parallel.dist_ba", "parallel.tracking"):
+        assert "gslam_tpu_torch." + m in sys.modules, m
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "gslam_tpu" or m.startswith("gslam_tpu."))

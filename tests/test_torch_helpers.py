@@ -38,8 +38,9 @@ from gslam_tpu_torch.utils.timer import TicToc
 from tests.test_torch_slam import datasets, port_features
 
 REPO = Path(__file__).resolve().parents[1]
-# re-exported by the JAX package, not ported yet (item 18)
-NOT_YET = {"find_sim3", "find_affine3d", "find_plane", "cull_points"}
+# re-exported by the JAX package, not ported yet: none is left (item 18's
+# fits and cull are tests/test_torch_alignment.py's)
+NOT_YET = set()
 
 
 def rand_se3(rng, n):

@@ -22,9 +22,10 @@ import torch
 
 from chip_smoke import (
     FR1_ARGS, LENS_ARGS, LENS_PX_TOL, LENS_RAY_TOL, REMAP_TOL,
-    assert_schur_close, ba_case, border_only, cost_order, fast_case,
-    lens_camera, lens_points, matcher_case, pixel_grid, rotated_rig,
-    to_problem, vi_case, without_pad_indices,
+    assemble_partials, assert_partials_close, assert_schur_close, ba_case,
+    border_only, cost_order, fast_case, lens_camera, lens_points,
+    matcher_case, pixel_grid, rotated_rig, to_problem, vi_case,
+    without_pad_indices,
 )
 from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.core.undistort import StereoRectifier, Undistorter, _remap
@@ -479,6 +480,105 @@ def test_schur_kernel_sparse_repeated_and_padded(dev, C, P, O, window, pads):
         assert torch.equal(x, y)
     torch.testing.assert_close(schur.ba_cost_kernel(prob, 0.01),
                                ba.ba_cost(plain, 0.01), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("C,P,O,window,pads,shard", [
+    (4, 384, 8, 4, False, False), (8, 1024, 8, 8, False, False),
+    (32, 1024, 8, 6, True, False), (29, 1200, 16, 6, True, True),
+    (6, 61, 5, 3, True, True)])
+def test_schur_partials_kernel_matches_plain(dev, C, P, O, window, pads,
+                                             shard):
+    """B5's partials entry against its plain version (schur_partials:
+    undamped, unpinned Hcc, bvec = bc - b_corr, S_corr), also on a ring
+    shard with pad cameras (rank 1 of 4: C padded to a multiple of 4
+    with fixed identity poses, C_pad <= 32) and with pad slots; one
+    launch counted; the same bits twice; pad cameras' rows zero."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.parallel.dist_ba import ring_shard
+
+    fields = ba_case(C, P, O, seed=C + P, window=window, pads=pads)
+    lam = torch.tensor(1e-3, device=dev)
+    prob, plain = (to_problem(f, dev) for f in (fields,
+                                                without_pad_indices(fields)))
+    if shard:
+        prob, plain = (ring_shard(x, 4, 1) for x in (prob, plain))
+    n = schur.partials_launches
+    out_k = schur.schur_partials_kernel(prob, lam, 0.01)
+    again = schur.schur_partials_kernel(prob, lam, 0.01)
+    out_p = schur.schur_partials_plain(plain, lam, 0.01)
+    torch.cuda.synchronize()
+    assert schur.partials_launches == n + 2
+    assert_partials_close(out_k, out_p, plain,
+                          f"C={prob.cam_pose.shape[0]}, P={P}")
+    flat = lambda o: (o[0], o[1], o[2], o[3].W_e, o[4], o[5])  # noqa: E731
+    assert all(torch.equal(x, y) for x, y in zip(flat(out_k), flat(again)))
+    assert not out_k[2][6 * C:].any() and not out_k[0][C:].any()
+
+
+@pytest.mark.parametrize("C,P,O", [(8, 1024, 8), (32, 1024, 8), (4, 384, 8)])
+def test_schur_partials_assemble_to_the_schur_kernel(dev, C, P, O):
+    """Damped and pinned, the partials of the whole problem are
+    gslam_schur's S and b bit for bit (the same sums in the same order);
+    the partials of four point blocks, summed, are within
+    tests/test_pallas.py's tolerances of them."""
+    from gslam_tpu_torch.ops.cuda import schur
+
+    fields = ba_case(C, P, O, seed=3, window=6, pads=True)
+    lam = torch.tensor(1e-3, device=dev)
+    prob = to_problem(fields, dev)
+    S, b = schur.schur_reduce_kernel(prob, lam, 0.01)[:2]
+    S1, b1 = assemble_partials(schur.schur_partials_kernel(prob, lam, 0.01),
+                               lam, prob.cam_fixed)
+    assert torch.equal(S1, S) and torch.equal(b1, b)
+    blk = P // 4
+    parts = [schur.schur_partials_kernel(prob._replace(
+        point_xyz=prob.point_xyz[k:k + blk],
+        point_fixed=prob.point_fixed[k:k + blk],
+        obs_cam=prob.obs_cam[k:k + blk], obs_uv=prob.obs_uv[k:k + blk],
+        obs_valid=prob.obs_valid[k:k + blk],
+        obs_weight=prob.obs_weight[k:k + blk]), lam, 0.01)
+        for k in range(0, P, blk)]
+    summed = [sum(p[i] for p in parts) for i in range(3)]
+    S4, b4 = assemble_partials(summed, lam, prob.cam_fixed)
+    torch.testing.assert_close(S4, S, rtol=1e-4,
+                               atol=1e-4 * S.abs().max().item())
+    torch.testing.assert_close(b4, b, rtol=0,
+                               atol=1e-4 * max(b.abs().max().item(), 1e-6))
+
+
+def ring_rank(rank, world, fields, iters):
+    """One rank of the ring BA with the kernels (launch.spawn)."""
+    from gslam_tpu_torch.ops.cuda import schur
+    from gslam_tpu_torch.parallel import (
+        distributed_bundle_adjust_ring, make_mesh,
+    )
+
+    out, costs = distributed_bundle_adjust_ring(
+        to_problem(fields, "cuda"), make_mesh((world, 1), device="cuda"),
+        iters=iters, use_kernels=True)
+    return out.cam_pose, costs, schur.partials_launches, schur.cost_launches
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_ring_with_kernels_matches_single_device(dev, world, backend):
+    """The ring BA with B5's partials entry and B6 on every rank (a world
+    of one on NCCL; two ranks on one card through gloo) against the
+    single-device bundle_adjust with the kernels: poses 1e-3, costs rtol
+    0.05 (tests/test_parallel.py's tolerances); every rank the same bits."""
+    from gslam_tpu_torch.opt.ba import bundle_adjust
+    from gslam_tpu_torch.parallel import launch
+
+    fields = ba_case(6, 256, 8, seed=4, window=4)
+    res = launch.spawn(ring_rank, world, device="cuda", backend=backend,
+                       args=(fields, 6), timeout_s=300.0)
+    out, st = bundle_adjust(to_problem(fields, dev), iters=6,
+                            use_kernels=True)
+    pose, costs, n_partials, n_cost = res[0]
+    assert n_partials == 6 and n_cost == 7
+    torch.testing.assert_close(pose, out.cam_pose.cpu(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(costs, st.cost.cpu(), rtol=0.05, atol=1e-8)
+    for other in res[1:]:
+        assert torch.equal(other[0], pose) and torch.equal(other[1], costs)
 
 
 @pytest.mark.parametrize("O", [1, 8, 64])

@@ -499,6 +499,44 @@ def reference_sfm(draws_path: str = None, wide: bool = False) -> dict:
     return out
 
 
+def reference_fleet() -> dict:
+    """The JAX package's fleet run: chip_smoke.py's 64 frames of the
+    sequence under each of FLEET_SEEDS through KeyframeSLAM, the maps
+    merged with FLEET_ALIGN, global BA (FLEET_GBA, every keyframe) over
+    a (1, 1) mesh: the keyframe ATE of the merged map (chip_smoke's
+    ``fleet_ate``), keyframes and the cost history."""
+    from chip_smoke import (
+        FLEET_ALIGN, FLEET_GBA, FLEET_SEEDS, SLAM_FRAMES, fleet_ate,
+    )
+    from gslam_tpu.core.se3 import se3_inverse as j_inv
+    from gslam_tpu.map.arena import merge_arenas
+    from gslam_tpu.opt.ba import global_bundle_adjust
+    from gslam_tpu.parallel.mesh import make_mesh
+
+    runs = []
+    for seed in FLEET_SEEDS:
+        cam, frames = frames_of(dict(FULL_SEQUENCE, seed=seed), SLAM_FRAMES)
+        js = JSLAM(cam, JConfig(**FULL_CFG))
+        run(js, frames)
+        runs.append((js, frames))
+    (a, fa), (b, fb) = runs
+    merged = merge_arenas(a.arena, b.arena,
+                          transform_b=jnp.asarray(FLEET_ALIGN, jnp.float32))
+    n_a, n = a._n_frames_host, a._n_frames_host + b._n_frames_host
+    out, costs = global_bundle_adjust(
+        merged, cam, max_cams=n,
+        mesh=make_mesh((1, 1), devices=jax.devices("cpu")[:1]), **FLEET_GBA)
+    centres = np.asarray(j_inv(out.frame_pose[:n, :7])[:, :3])
+
+    def gt(frames):
+        return (np.asarray([fr.timestamp for fr in frames]),
+                np.stack([fr.gt_pose[:3] for fr in frames]))
+
+    return dict(ate_m=fleet_ate(centres, np.asarray(out.frame_time[:n]), n_a,
+                                gt(fa), gt(fb)),
+                keyframes=[n_a, n - n_a], costs=np.asarray(costs).tolist())
+
+
 REFERENCE_RUNS = {
     # chip_smoke.py's 64-frame cell (bench.py:136-145, one frame a call)
     "--reference-ate": lambda: reference_run(
@@ -546,6 +584,8 @@ REFERENCE_RUNS = {
     "--reference-ate-sfm-wide": lambda: reference_sfm(wide=True),
     "--reference-draws-sfm": lambda: reference_sfm(
         "tests/data/sfm_draws.npz"),
+    # two sequences merged, then global BA over a (1, 1) mesh
+    "--reference-ate-fleet": reference_fleet,
 }
 
 
