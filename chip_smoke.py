@@ -133,7 +133,23 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     ``KeyframeSLAM`` over the decoded frames, counters around it, the ATE
     within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run over the
     same files, track ms/frame beside decode ms/frame;
-14. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
+14. the app layer, the user's own entry points over those files:
+    ``python -m gslam_tpu_torch eval -dataset <dir>.tumrgbd -slam
+    keyframe -slam.<field> ...`` (phase 13's configuration) in a process
+    of its own, its saved trajectory the same text as phase 13's run,
+    its report's ATE within the same gate, a metrics row a frame, its
+    saved map loadable; ``cli.main(["viz", ...])`` in this process with
+    the same flags, launch counters around it (B1, B2, B4, B5, B6), the
+    same trajectory, the HTML viewer (its embedded JSON parsed), both
+    PLYs and the PNG; ``SLAMPipeline`` fed by ``DatasetPlayer(rate=0)``,
+    its published poses bit for bit phase 13's, ids in order, a map
+    message; ``play -vocabulary`` (a vocabulary trained as phase 15's
+    from the first frames) over 16 frames, counters around it (B7 among
+    them); the port's bench line (``gslam_tpu_torch.bench``, on the
+    192-frame scene of phase 8); ``graft_entry.entry()``'s step bit for
+    bit phase 2's; ``graft_entry.dryrun_multichip(1)`` on a world of one
+    (NCCL);
+15. drive ``KeyframeSLAM`` with a vocabulary over the two-lap sequence
     of ``tests/test_longrun.py::test_kitti00_shaped_two_lap_run`` (1024
     frames 480 x 640 ``ring_out``, lap 2 revisits lap 1; vocabulary k =
     6, L = 2 trained from the first 6 frames' features; ``max_kps`` 384,
@@ -144,7 +160,7 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     1.5 m; then kidnap the tracker (a bogus pose, a dead motion model),
     feed frames from the far side of the ring and require BoW
     relocalization to bring the pose back through B7;
-15. the other SLAM systems, each run twice with the same ATE bit for
+16. the other SLAM systems, each run twice with the same ATE bit for
     bit and launch counters around the first: ``FrameToFrameOdometry``
     over the 64 frames of phase 4 with depth (PnP) and without (two-view
     geometry, the JAX package's draws replayed from
@@ -164,7 +180,7 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     shapes (B5 on the global BA's own problem, C = 10); each with the ATE
     within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run (stereo
     also under 0.12 m, SfM under 0.30 m);
-16. the fleet (the reference's ``__graft_entry__.dryrun_multichip`` at
+17. the fleet (the reference's ``__graft_entry__.dryrun_multichip`` at
     full width): ``KeyframeSLAM`` over the 64 frames of phase 4 and over
     64 frames of the same scene from seed 11, the maps merged with
     ``merge_arenas`` (b placed 50 m along x), launch counters around
@@ -183,7 +199,7 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     tolerance; ``sharded_track_batch`` of 8 frames at the tracking
     step's shapes on a world of one, bit for bit 8 ``track_forward``
     calls;
-17. print the slices' JSON lines (the probes and the extra shapes'
+18. print the slices' JSON lines (the probes and the extra shapes'
     times among them), the ``kernels`` JSON line (with each kernel's
     launches on every phase's main path), then the device JSON as the
     last line.
@@ -203,12 +219,10 @@ import glob
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -229,7 +243,9 @@ from gslam_tpu_torch.map.arena import (
 )
 from gslam_tpu_torch.datasets import native_loader
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
+from gslam_tpu_torch import bench
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
+from gslam_tpu_torch.graft_entry import FLEET_ALIGN, FLEET_SEEDS
 from gslam_tpu_torch.models import keyframe_slam
 from gslam_tpu_torch.models.direct import DirectConfig, DirectOdometry
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
@@ -252,9 +268,13 @@ from gslam_tpu_torch.parallel import (
     sharded_track_batch,
 )
 from gslam_tpu_torch.utils.platform import card_name_and_power_limit
+from gslam_tpu_torch.utils.png import write_png
 
 H, W, M, K, B = 480, 640, 2048, 512, 256
 DEVICE = "cuda"
+# threads that render the synthetic sequences' views ahead of the reads
+# (SyntheticDataset.render_ahead: the same frames, bit for bit)
+RENDER_THREADS = min(8, os.cpu_count() or 1)
 THRESH = 0.06
 PNP_THRESH = 2e-5
 
@@ -464,9 +484,8 @@ REF_ATE_SFM_WIDE = 2.123727560043335
 # KeyframeSLAM, merged with b placed 50 m along x, then global BA over the
 # merged map (every keyframe, at most MAX_CAMS; 4096 points a solve; 16
 # slots a point) through the psum variant on a world of one, and the ring
-# variant with the kernels on the merged map's global problem
-FLEET_SEEDS = (3, 11)
-FLEET_ALIGN = [50.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
+# variant with the kernels on the merged map's global problem (the seeds
+# and the placement, FLEET_SEEDS and FLEET_ALIGN, are graft_entry's)
 FLEET_GBA = dict(iters=4, max_points=4096, max_obs_per_point=16)
 FLEET_RING_ITERS = 8
 FLEET_WORLDS = (1, 2, 4)
@@ -1272,7 +1291,8 @@ def phase_check_fast_frame(frame):
 
 def phase_main_path(inputs):
     """One track_forward through the kernels, launch counts around it;
-    then the plain path on the card from the same generator seed."""
+    then the plain path on the card from the same generator seed.
+    Returns (launches, (pose, inliers, features) of the kernel run)."""
     img, cam, xyz, desc, valid, _ = inputs
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
@@ -1315,7 +1335,7 @@ def phase_main_path(inputs):
         f"({int(m_k.count)} matches)")
     if not (same_matches and dpose <= 1e-4 and int(nf_p) == int(nf)):
         raise AssertionError("plain path disagrees with the kernel path")
-    return launched
+    return launched, (T.cpu(), int(n), int(nf))
 
 
 def time_frame(inputs, use_kernels: bool, reps: int = 30):
@@ -1520,28 +1540,6 @@ def gated_inputs(N=2048, Mk=512, seed=7):
         valid_kp, uv_map, kp_uv)]
 
 
-def bench_problem():
-    """The local-BA problem of bench.py:199-218 (C = 8 cameras, P = 1024
-    points, O = 8 observation slots), drawn in the same order."""
-    rng = np.random.default_rng(0)
-    C, P, O = 8, 1024, 8
-    X = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1.5, 1.5, P),
-                  rng.uniform(3, 9, P)], -1).astype(np.float32)
-    poses = np.tile(np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32), (C, 1))
-    poses[:, 0] = 0.1 * np.arange(C)
-    obs_cam = rng.integers(0, C, (P, O)).astype(np.int32)
-    pc = X[:, None] + poses[obs_cam][..., :3]
-    uv = (pc[..., :2] / pc[..., 2:3]).astype(np.float32)
-    uv += rng.normal(0, 5e-4, uv.shape).astype(np.float32)
-    cam_fixed = np.zeros(C, bool)
-    cam_fixed[0] = True
-    xyz = X + rng.normal(0, 0.01, X.shape).astype(np.float32)
-    fields = (poses, cam_fixed, xyz, np.zeros(P, bool), obs_cam, uv,
-              np.ones((P, O), bool), np.ones((P, O), np.float32))
-    return ba.BundleProblem(*(torch.as_tensor(x, device=DEVICE)
-                              for x in fields))
-
-
 def phase_check_slam_kernels():
     """B4, B5 and B6 against their plain versions at the SLAM path's
     shapes; bundle_adjust with the kernels against the plain LM."""
@@ -1565,7 +1563,7 @@ def phase_check_slam_kernels():
                          f"B4 gated matcher (N={N}, M={Mk})")
         rec[label] = dict(max_abs_err=err, args=(*g_args, gate2))
 
-    prob = bench_problem()
+    prob = bench.ba_problem(torch.device(DEVICE))
     lam = torch.tensor(1e-3, device=DEVICE)
     S1, b1, W1, Hi1, bp1 = schur.schur_reduce_kernel(prob, lam, 0.01)
     S0, b0, W0, Hi0, bp0 = ba.schur_reduce(prob, lam, 0.01)
@@ -1646,6 +1644,7 @@ def load_frames():
     t0 = time.perf_counter()
     ds = SyntheticDataset(**SEQUENCE)
     ds.open("synth://")
+    ds.render_ahead(RENDER_THREADS)
     frames = list(ds)
     log(f"sequence: {len(frames)} frames {SEQUENCE['height']}x"
         f"{SEQUENCE['width']} rendered in {time.perf_counter() - t0:.1f} s")
@@ -2052,6 +2051,7 @@ def render(sequence):
     t0 = time.perf_counter()
     ds = SyntheticDataset(**sequence)
     ds.open("synth://")
+    ds.render_ahead(RENDER_THREADS)
     frames = list(ds)
     return ds.camera, frames, time.perf_counter() - t0
 
@@ -2505,40 +2505,6 @@ def phase_distorted(camera, frames):
         graph_vs_eager=graph)
 
 
-def write_png(path, arr):
-    """Write ``arr`` as a PNG with the standard library alone (zlib,
-    struct): uint8 gray (H, W), uint8 RGB (H, W, 3) or uint16 gray
-    (H, W) as 16-bit samples, filter 0 on every row, no interlace."""
-    arr = np.asarray(arr)
-    if arr.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"PNG samples must be uint8 or uint16, got "
-                         f"{arr.dtype}")
-    if arr.ndim == 2:
-        color = 0
-    elif arr.ndim == 3 and arr.shape[2] == 3:
-        color = 2
-    else:
-        raise ValueError(f"PNG image must be (H, W) or (H, W, 3), got "
-                         f"{arr.shape}")
-    H, W = arr.shape[:2]
-    data = np.ascontiguousarray(arr, ">u2" if arr.dtype == np.uint16
-                                else np.uint8)
-    rows = data.view(np.uint8).reshape(H, -1)
-    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], 1).tobytes()
-
-    def chunk(kind, payload):
-        return (struct.pack(">I", len(payload)) + kind + payload
-                + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
-
-    depth = 16 if arr.dtype == np.uint16 else 8
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, color,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw))
-                + chunk(b"IEND", b""))
-
-
 def write_tum_sequence(root, frames, camera):
     """Write rendered frames in the TUM RGB-D layout under ``root``: each
     gray frame as an 8-bit RGB PNG (the gray level in all three
@@ -2579,69 +2545,69 @@ def write_tum_sequence(root, frames, camera):
     return written
 
 
-def phase_tum_disk():
+def phase_tum_disk(tmp):
     """The main path from files: render the 64 frames, write them in the
-    TUM RGB-D layout into a temporary directory, build the native
-    decoder, open the directory with open_dataset(dir + ".tumrgbd"),
-    check every decoded frame against what was written (bit for bit) and
-    the camera (OpenCV, the synthetic parameters), time the decoding
-    (the player's frames, the colour files alone, and NativeLoader's
-    readahead of their gray), then KeyframeSLAM over the decoded frames,
-    counters around it, against the JAX package's run over the same
-    files."""
+    TUM RGB-D layout into ``tmp`` (which phase_app reads after), build
+    the native decoder, open the directory with open_dataset(dir +
+    ".tumrgbd"), check every decoded frame against what was written (bit
+    for bit) and the camera (OpenCV, the synthetic parameters), time the
+    decoding (the player's frames, the colour files alone, and
+    NativeLoader's readahead of their gray), then KeyframeSLAM over the
+    decoded frames, counters around it, against the JAX package's run
+    over the same files.  Returns (launches, checks, the run: the
+    directory, the system and the decoded frames)."""
     camera, frames, render_s = render(TUM_SEQUENCE)
     n = len(frames)
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "synth_distorted")
-        t0 = time.perf_counter()
-        written = write_tum_sequence(root, frames, camera)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        lib = native_loader.build()
-        build_s = time.perf_counter() - t0
-        if lib.parent != build.BUILD_DIR or not lib.is_file():
-            raise AssertionError(f"native library not built: {lib}")
-        ds = open_dataset(root + ".tumrgbd")
-        if not (ds.is_opened() and len(ds) == n
-                and ds.camera.model == "opencv"
-                and np.array_equal(ds.camera.params, camera.params)):
-            raise AssertionError(f"TUM player: opened {ds.is_opened()}, "
-                                 f"{len(ds)} frames, camera "
-                                 f"{ds.camera.info()}")
-        t0 = time.perf_counter()
-        disk = list(ds)
-        decode_s = time.perf_counter() - t0
-        for i, (fr, (rgb, d16)) in enumerate(zip(disk, written)):
-            same = (np.array_equal(fr.color, rgb)
-                    and fr.depth.dtype == np.float32
-                    and np.array_equal(fr.depth,
-                                       d16.astype(np.float32) / 5000.0)
-                    and np.array_equal(fr.image, to_gray_f32(rgb))
-                    and np.array_equal(fr.gt_pose, frames[i].gt_pose)
-                    and abs(fr.timestamp - frames[i].timestamp) < 1e-6)
-            if not same:
-                raise AssertionError(f"decoded frame {i} differs from what "
-                                     "was written")
-        paths = [os.path.join(root, rel) for _, rel in ds.rgb]
-        t0 = time.perf_counter()
-        for p in paths:
-            native_loader.read_rgb_u8(p)
-        rgb_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gray = [native_loader.read_gray_f32(p) for p in paths]
-        gray_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loader = native_loader.NativeLoader(paths, n_threads=4, ring=8)
-        try:
-            ahead = [loader.next() for _ in paths]
-            end = loader.next()
-        finally:
-            loader.close()
-        ahead_s = time.perf_counter() - t0
-        if end is not None or not all(np.array_equal(a, g)
-                                      for a, g in zip(ahead, gray)):
-            raise AssertionError("NativeLoader's frames differ from the "
-                                 "plain decode, or it did not end")
+    root = os.path.join(tmp, "synth_distorted")
+    t0 = time.perf_counter()
+    written = write_tum_sequence(root, frames, camera)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t0
+    if lib.parent != build.BUILD_DIR or not lib.is_file():
+        raise AssertionError(f"native library not built: {lib}")
+    ds = open_dataset(root + ".tumrgbd")
+    if not (ds.is_opened() and len(ds) == n
+            and ds.camera.model == "opencv"
+            and np.array_equal(ds.camera.params, camera.params)):
+        raise AssertionError(f"TUM player: opened {ds.is_opened()}, "
+                             f"{len(ds)} frames, camera "
+                             f"{ds.camera.info()}")
+    t0 = time.perf_counter()
+    disk = list(ds)
+    decode_s = time.perf_counter() - t0
+    for i, (fr, (rgb, d16)) in enumerate(zip(disk, written)):
+        same = (np.array_equal(fr.color, rgb)
+                and fr.depth.dtype == np.float32
+                and np.array_equal(fr.depth,
+                                   d16.astype(np.float32) / 5000.0)
+                and np.array_equal(fr.image, to_gray_f32(rgb))
+                and np.array_equal(fr.gt_pose, frames[i].gt_pose)
+                and abs(fr.timestamp - frames[i].timestamp) < 1e-6)
+        if not same:
+            raise AssertionError(f"decoded frame {i} differs from what "
+                                 "was written")
+    paths = [os.path.join(root, rel) for _, rel in ds.rgb]
+    t0 = time.perf_counter()
+    for p in paths:
+        native_loader.read_rgb_u8(p)
+    rgb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gray = [native_loader.read_gray_f32(p) for p in paths]
+    gray_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loader = native_loader.NativeLoader(paths, n_threads=4, ring=8)
+    try:
+        ahead = [loader.next() for _ in paths]
+        end = loader.next()
+    finally:
+        loader.close()
+    ahead_s = time.perf_counter() - t0
+    if end is not None or not all(np.array_equal(a, g)
+                                  for a, g in zip(ahead, gray)):
+        raise AssertionError("NativeLoader's frames differ from the "
+                             "plain decode, or it did not end")
     reset_counts()
     slam, secs = run_slam(ds.camera, disk, cfg=DISTORTED_CFG)
     launched = counts()
@@ -2679,7 +2645,210 @@ def phase_tum_disk():
                           ate_m=m.ate_rmse, rpe_m=m.rpe_rmse,
                           track_ms_per_frame=secs * 1e3 / n,
                           split_ms_per_frame=split_ms(slam, n),
-                          decode=decode)
+                          decode=decode), dict(
+        root=root, slam=slam, frames=disk,
+        track_ms_per_frame=secs * 1e3 / n)
+
+
+# the app layer's path (phase_app): the CLI's run over the TUM cell's
+# files launches the SLAM path; with a vocabulary, B7 as well
+APP_PATH = SLAM_PATH
+APP_VOCAB_PATH = SLAM_PATH + ("bow_descent",)
+APP_VOCAB_FRAMES = 16
+
+
+def app_flags():
+    """The CLI flags of DISTORTED_CFG: -slam keyframe -slam.<field> v
+    (and -cpu true when DEVICE is the CPU)."""
+    out = ["-slam", "keyframe"] + (["-cpu", "true"] if DEVICE == "cpu"
+                                   else [])
+    for k, v in DISTORTED_CFG.items():
+        out += [f"-slam.{k}", str(v)]
+    return out
+
+
+def viewer_data(html_path):
+    """The viewer's embedded JSON (``const D = {...};``)."""
+    txt = Path(html_path).read_text()
+    return json.loads(txt.split("const D = ", 1)[1].split(";\n", 1)[0])
+
+
+def phase_app(tum, main_out, frames):
+    """The port's user surface over the TUM cell's files (module
+    docstring, phase 14): ``python -m gslam_tpu_torch eval`` in a
+    subprocess against phase_tum_disk's in-process run; ``cli.main(["viz",
+    ...])`` in this process, counters around it; ``SLAMPipeline`` with
+    ``DatasetPlayer(rate=0)``; ``play -vocabulary`` over 16 frames,
+    counters around it; ``bench.main`` on ``frames`` (the 192-frame
+    scene); ``graft_entry.entry()`` against phase_main_path's outputs;
+    ``graft_entry.dryrun_multichip(1)``.  Returns (launches of the viz
+    run, launches of the vocabulary run, checks)."""
+    from gslam_tpu_torch import graft_entry
+    from gslam_tpu_torch.app import cli
+    from gslam_tpu_torch.app.config import Svar
+    from gslam_tpu_torch.app.messenger import Messenger
+    from gslam_tpu_torch.datasets.base import DatasetPlayer
+    from gslam_tpu_torch.eval.trajectory import save_tum_trajectory
+    from gslam_tpu_torch.map.arena import load_arena
+    from gslam_tpu_torch.models.pipeline import (CURFRAME_TOPIC, MAP_TOPIC,
+                                                 SLAMPipeline)
+
+    path = tum["root"] + ".tumrgbd"
+    ref, disk = tum["slam"], tum["frames"]
+    n = len(disk)
+    flags = app_flags()
+    out = Path(tum["root"]).parent / "app"
+    out.mkdir()
+    # the in-process run's trajectory through the CLI's own writer
+    direct = out / "direct.txt"
+    save_tum_trajectory(str(direct), np.asarray([f.timestamp for f in disk]),
+                        torch.stack(ref.trajectory)[:, :7].cpu().numpy())
+    want = direct.read_text()
+
+    # 1. the CLI in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gslam_tpu_torch", "eval", "-dataset", path,
+         *flags, "-out", str(out / "report.json"),
+         "-save_traj", str(out / "traj.txt"),
+         "-save_map", str(out / "map.npz"), "-metrics", str(out / "m.jsonl")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    proc_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m gslam_tpu_torch eval exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    rep = json.loads((out / "report.json").read_text())
+    rows = [json.loads(x) for x in open(out / "m.jsonl")]
+    got = (out / "traj.txt").read_text()
+    arena = load_arena(str(out / "map.npz"), device=DEVICE)
+    frame_ms = rep["timing"]["app/frame"]["mean"] * 1e3
+    startup_s = proc_s - rep["timing"]["app/frame"]["total"]
+    log(f"app: python -m gslam_tpu_torch eval over {n} TUM files: exit 0 in "
+        f"{proc_s:.2f} s ({startup_s:.2f} s outside the frames: start-up, "
+        f"kernels loaded, decode, writing), app/frame {frame_ms:.3f} ms "
+        f"(in-process {tum['track_ms_per_frame']:.3f}); ATE "
+        f"{rep['ate_rmse']!r} m (gate {ATE_GATE_TUM:.4f} m), {rep['frames']} "
+        f"frames, {rep['keyframes']} keyframes, device memory "
+        f"{rep['device_hbm_mb']:.1f} MB; trajectory bit for bit the "
+        f"in-process run: {got == want}; {len(rows)} metric rows; map "
+        f"{int(arena.n_frames)} keyframes")
+    if got != want:
+        raise AssertionError("the CLI's trajectory differs from the "
+                             "in-process KeyframeSLAM over the same files")
+    if not rep["ate_rmse"] <= ATE_GATE_TUM or rep["frames"] != n:
+        raise AssertionError(f"CLI eval: ATE {rep['ate_rmse']} (gate "
+                             f"{ATE_GATE_TUM}), {rep['frames']} frames")
+    if len(rows) != n or [r["frame"] for r in rows] != list(range(n)):
+        raise AssertionError(f"CLI eval: {len(rows)} metric rows")
+    if int(arena.n_frames) != ref._n_frames_host:
+        raise AssertionError(f"saved map: {int(arena.n_frames)} keyframes, "
+                             f"the run {ref._n_frames_host}")
+
+    # 2. viz in this process, counters around it
+    prefix = str(out / "viz")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["viz", "-dataset", path, *flags, "-out", prefix,
+                   "-save_traj", str(out / "viz.txt")])
+    torch.cuda.synchronize()
+    viz_s = time.perf_counter() - t0
+    launched = counts()
+    data = viewer_data(prefix + ".html")
+    missing = [k for k in APP_PATH if launched[k] < 1]
+    outputs = {x: os.path.getsize(prefix + x) for x in
+               (".html", "_traj.ply", "_map.ply", ".png")}
+    log(f"app: cli.main(['viz', ...]) exit {rc} in {viz_s:.2f} s; launches "
+        f"{launched}; outputs {outputs} bytes; viewer: {len(data['traj'])} "
+        f"poses, {len(data['points'])} points, {len(data['frusta'])} "
+        f"keyframes, {len(data['covis']) // 2} covisibility edges")
+    if rc != 0 or missing:
+        raise AssertionError(f"viz: exit {rc}, kernels never ran: {missing}")
+    if (out / "viz.txt").read_text() != got:
+        raise AssertionError("viz's trajectory differs from the eval run's")
+    if len(data["traj"]) != n or not data["frusta"] or not data["points"]:
+        raise AssertionError("viz: the viewer's data is incomplete")
+    if Path(prefix + ".png").read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("viz: no PNG")
+
+    # 3. the messenger-wired pipeline
+    ds = open_dataset(path)
+    slam = KeyframeSLAM(ds.camera, SLAMConfig(**DISTORTED_CFG),
+                        device=DEVICE)
+    bus = Messenger()
+    poses, maps = [], []
+    bus.subscribe(CURFRAME_TOPIC, 0, poses.append)
+    bus.subscribe(MAP_TOPIC, 0, maps.append)
+    pipe = SLAMPipeline(slam, bus=bus, queue_size=len(ds))
+    t0 = time.perf_counter()
+    player = DatasetPlayer(ds, bus=bus, rate=0.0).start()
+    try:
+        if not pipe.wait(600.0):
+            raise AssertionError("pipeline: no end of stream")
+    finally:
+        player.stop()
+        pipe.shutdown()
+    pipe_s = time.perf_counter() - t0
+    same = (len(poses) == n
+            and [p["id"] for p in poses] == list(range(n))
+            and all(np.array_equal(p["pose"], t.cpu().numpy())
+                    for p, t in zip(poses, ref.trajectory)))
+    log(f"app: SLAMPipeline + DatasetPlayer(rate=0): {len(poses)} poses in "
+        f"{pipe_s:.2f} s, ids in order and bit for bit the direct loop: "
+        f"{same}; {len(maps)} map messages")
+    if not same or not maps:
+        raise AssertionError("pipeline differs from the direct loop")
+
+    # 4. -vocabulary over the first frames, counters around it
+    voc = train_loop_vocabulary(open_dataset(path))
+    vocab.save_vocabulary(voc, str(out / "voc.npz"))
+    s = Svar()
+    s.parse_main(["play", "-dataset", path, *flags, "-vocabulary",
+                  str(out / "voc.npz"), "-Dataset.Max",
+                  str(APP_VOCAB_FRAMES)])
+    reset_counts()
+    rc = cli.app_play(s)
+    torch.cuda.synchronize()
+    launched_voc = counts()
+    log(f"app: play -vocabulary over {APP_VOCAB_FRAMES} frames: exit {rc}, "
+        f"launches {launched_voc}")
+    missing = [k for k in APP_VOCAB_PATH if launched_voc[k] < 1]
+    if rc != 0 or missing:
+        raise AssertionError(f"-vocabulary: exit {rc}, kernels never ran: "
+                             f"{missing}")
+
+    # 5. the port's bench line
+    t0 = time.perf_counter()
+    line = bench.main(frames=frames)
+    bench_s = time.perf_counter() - t0
+    log(f"app: bench ({bench_s:.1f} s) on {card_name_and_power_limit()}: "
+        + json.dumps(line))
+
+    # 6. graft entry: the step and its example, bit for bit phase 2
+    fn, args = graft_entry.entry()
+    T, n_inl, n_feat = fn(*args[:5], generator=args[5])
+    T0, n0, nf0 = main_out
+    entry_same = (torch.equal(T.cpu(), T0) and int(n_inl) == n0
+                  and int(n_feat) == nf0)
+    log(f"app: graft_entry.entry() bit for bit phase_main_path: "
+        f"{entry_same} ({int(n_inl)} inliers, {int(n_feat)} features)")
+    if not entry_same:
+        raise AssertionError("graft_entry.entry() differs from "
+                             "phase_main_path")
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    log(f"app: dryrun_multichip(1) in {dry_s:.1f} s: " + json.dumps(dry))
+    return launched, launched_voc, dict(
+        eval=dict(seconds=proc_s, outside_frames_s=startup_s,
+                  frame_ms=frame_ms, ate_m=rep["ate_rmse"],
+                  keyframes=rep["keyframes"],
+                  device_hbm_mb=rep["device_hbm_mb"],
+                  same_as_in_process=True,
+                  in_process_ms_per_frame=tum["track_ms_per_frame"]),
+        viz=dict(seconds=viz_s, outputs=outputs), pipeline_s=pipe_s,
+        bench=line, bench_s=bench_s, graft_entry_same=entry_same,
+        dryrun=dry, dryrun_s=dry_s)
 
 
 def schur_work(prob):
@@ -2843,8 +3012,9 @@ def train_loop_vocabulary(ds):
 
 
 def phase_loop():
-    """KeyframeSLAM with a vocabulary over the two-lap sequence, frames
-    rendered one at a time; launch counters around the run; the gates
+    """KeyframeSLAM with a vocabulary over the two-lap sequence (its
+    views rendered ahead, each frame finished as it is read); launch
+    counters around the run; the gates
     of tests/test_longrun.py::test_kitti00_shaped_two_lap_run; then the
     kidnap and its relocalization."""
     ds = SyntheticDataset(**LOOP_SEQUENCE)
@@ -2854,12 +3024,16 @@ def phase_loop():
     log(f"loop vocabulary: k={voc.k}, L={voc.L}, {voc.n_words} words, "
         f"trained in {time.perf_counter() - t0:.1f} s")
     ds.open("synth://")                      # rewind
+    t0 = time.perf_counter()
+    ds.render_ahead(RENDER_THREADS)
+    ahead_s = time.perf_counter() - t0
     n = LOOP_SEQUENCE["n_frames"]
     slam = KeyframeSLAM(ds.camera, SLAMConfig(**LOOP_CFG), vocabulary=voc,
                         device=DEVICE)
     lc = slam.loop_closer
     ts, gt, kept, closure_s = [], [], {}, []
-    render_s = track_s = prev_loop_s = 0.0
+    track_s = prev_loop_s = 0.0
+    render_s = ahead_s
     torch.cuda.synchronize()
     reset_counts()
     for i in range(n):
@@ -3648,12 +3822,13 @@ def check_partials(rec, shard):
 
 def phase_fleet(rec):
     """Two sequences tracked, merged and bundle-adjusted across ranks
-    (module docstring, phase 16); launch counters around each run."""
+    (module docstring, phase 17); launch counters around each run."""
     t0 = time.perf_counter()
     seqs = []
     for seed in FLEET_SEEDS:
         ds = SyntheticDataset(**dict(SEQUENCE, seed=seed))
         ds.open("synth://")
+        ds.render_ahead(RENDER_THREADS, SLAM_FRAMES)
         seqs.append((ds.camera, [ds.grab_frame() for _ in range(SLAM_FRAMES)]))
     render_s = time.perf_counter() - t0
     camera = seqs[0][0]
@@ -3855,7 +4030,7 @@ def main() -> int:
     inputs = example_inputs(H, W, M, K, device=DEVICE)
     torch.cuda.synchronize()
     rec = phase_check(inputs)
-    launched_track = phase_main_path(inputs)
+    launched_track, main_out = phase_main_path(inputs)
     ms_k = time_frame(inputs, use_kernels=True, reps=20)
     ms_p = time_frame(inputs, use_kernels=False, reps=20)
     ms_k2 = time_frame(inputs, use_kernels=True, reps=20)
@@ -3892,7 +4067,6 @@ def main() -> int:
     launched_direct, direct_checks = phase_direct(camera,
                                                   frames[:SLAM_FRAMES])
     t = phase("direct main path", t)
-    del frames
     launched_mono, mono_checks = phase_mono()
     t = phase("mono main path", t)
     launched_vi, vi_checks = phase_vi()
@@ -3905,8 +4079,13 @@ def main() -> int:
     dist_checks["render_s"] = render_s
     del frames_d
     t = phase("distorted main path", t)
-    launched_tum, tum_checks = phase_tum_disk()
-    t = phase("TUM RGB-D from disk", t)
+    with tempfile.TemporaryDirectory() as tmp:
+        launched_tum, tum_checks, tum_run = phase_tum_disk(tmp)
+        t = phase("TUM RGB-D from disk", t)
+        launched_app, launched_app_voc, app_checks = phase_app(
+            tum_run, main_out, frames)
+        del tum_run, frames
+    t = phase("app layer", t)
     launched_stereo, stereo_checks = phase_stereo(rec)
     t = phase("stereo main path", t)
     launched_sfm, sfm_checks = phase_sfm(rec)
@@ -3940,7 +4119,8 @@ def main() -> int:
                 "loop": launched_loop, "odometry": launched_odom["depth"],
                 "odometry_mono": launched_odom["mono"],
                 "stereo": launched_stereo, "direct": launched_direct,
-                **launched_sfm, "fleet": launched_fleet}
+                **launched_sfm, "fleet": launched_fleet,
+                "app": launched_app, "app_vocabulary": launched_app_voc}
     for k in kern:
         k["launches_by_phase"] = {ph: lau[k["name"]]
                                   for ph, lau in by_phase.items()}
@@ -3988,6 +4168,11 @@ def main() -> int:
     log(json.dumps({"slice": "keyframe_slam_tum_disk",
                     "shape": [TUM_SEQUENCE["height"], TUM_SEQUENCE["width"]],
                     **tum_checks, "launches": launched_tum}))
+    log(json.dumps({"slice": "app",
+                    "shape": [TUM_SEQUENCE["height"], TUM_SEQUENCE["width"]],
+                    "frames": TUM_SEQUENCE["n_frames"], **app_checks,
+                    "launches": launched_app,
+                    "launches_vocabulary": launched_app_voc}))
     log(json.dumps({"slice": "odometry",
                     "shape": [SEQUENCE["height"], SEQUENCE["width"]],
                     "frames": SLAM_FRAMES, **odom_checks,

@@ -31,7 +31,13 @@ easy to find:
   / monoVO, KITTI, EuRoC, image-folder, video and drone-map players,
   opened by extension through ``app.registry.open_dataset`` and decoding
   through the native C library (``datasets/native_loader.py``); ATE /
-  RPE and the TUM / KITTI trajectory files;
+  RPE, the TUM / KITTI trajectory files and the evaluation report;
+* :mod:`gslam_tpu_torch.app` — the ``gslam``-style CLI (``python -m
+  gslam_tpu_torch {play,eval,viz,bench,tests}``), the Svar config, the
+  messenger bus (with :mod:`~gslam_tpu_torch.models.pipeline` and the
+  dataset player) and the HTML viewer; :mod:`gslam_tpu_torch.bench`, the
+  benchmark line, and :mod:`gslam_tpu_torch.graft_entry`, the step with
+  its example and the multi-rank dry run;
 * :mod:`gslam_tpu_torch.convert` — numpy <-> tensor conversion of the
   map (slab, arena, BA and VI problems, IMU factors, pose graph),
   vocabulary, camera, features and matches, so that both packages compute

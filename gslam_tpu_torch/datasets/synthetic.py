@@ -17,6 +17,7 @@ the extension "synth" is registered.
 from __future__ import annotations
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -181,13 +182,29 @@ class SyntheticDataset(Dataset):
                 .astype(np.float32)
             self._tex = _value_noise(c["seed"] + 7)
         self.rng = rng
+        self._ahead = {}
         return True
 
     def _length(self) -> int:
         return self.cfg["n_frames"]
 
-    def _render(self, R_wc, t_wc, want_depth: bool):
-        """Splat the world dots as seen from camera pose (R_wc, t_wc)."""
+    def _render(self, R_wc, t_wc, want_depth: bool, clean=None):
+        """Splat the world dots as seen from camera pose (R_wc, t_wc),
+        then add the sensor noise (the sequence's draws, in frame order);
+        ``clean`` is this view's :meth:`_render_clean`, when computed
+        ahead."""
+        c = self.cfg
+        if clean is None:
+            clean = self._render_clean(R_wc, t_wc, want_depth)
+        img, depth_img = clean
+        if c["noise"] > 0:
+            img = img + self.rng.normal(0, c["noise"], img.shape) \
+                .astype(np.float32)
+        return img.clip(0.0, 1.0).astype(np.float32), depth_img
+
+    def _render_clean(self, R_wc, t_wc, want_depth: bool):
+        """The view before its noise: (image, depth or None).  Takes no
+        random draws, so views can be computed in any order."""
         c = self.cfg
         H, W = c["height"], c["width"]
         R_cw = R_wc.T
@@ -256,10 +273,36 @@ class SyntheticDataset(Dataset):
             if depth_img is not None:
                 depth_img[vi[j] - r:vi[j] + r + 1,
                           ui[j] - r:ui[j] + r + 1] = z[j]
-        if c["noise"] > 0:
-            img = img + self.rng.normal(0, c["noise"], img.shape) \
-                .astype(np.float32)
-        return img.clip(0.0, 1.0).astype(np.float32), depth_img
+        return img, depth_img
+
+    def render_ahead(self, workers: int,
+                     frames: Optional[int] = None) -> None:
+        """Compute the noise-free views of the next ``frames`` frames
+        (all not yet read by default) on ``workers`` threads (numpy
+        releases the GIL in its array operations); ``grab_frame`` then
+        adds each frame's draws in order, so the frames are the same
+        bits as without."""
+        end = len(self) if frames is None else min(len(self),
+                                                   self._idx + frames)
+        views = {(idx, k): v for idx in range(self._idx, end)
+                 for k, v in enumerate(self._views(idx))}
+        with ThreadPoolExecutor(workers) as ex:
+            done = ex.map(lambda v: self._render_clean(*v), views.values())
+            self._ahead = dict(zip(views, done))
+
+    def _views(self, idx: int):
+        """(R_wc, t_wc, want_depth) of each view of frame ``idx``: the
+        camera's, then the right camera's of a stereo rig."""
+        c = self.cfg
+        # laps > 1 repeats the closed trajectory: lap 2+ revisits lap 1
+        n_lap = c["n_frames"] // int(c.get("laps", 1))
+        R_wc, t_wc = _pose_cam_to_world(c["motion"], idx, n_lap,
+                                        c["radius"])
+        views = [(R_wc, t_wc, c["depth"])]
+        if c["stereo"]:
+            t_wc_right = t_wc + R_wc @ np.array([c["baseline"], 0.0, 0.0])
+            views.append((R_wc, t_wc_right, False))
+        return views
 
     def _imu_window(self, idx: int) -> Optional[np.ndarray]:
         """Ground-truth IMU samples covering (t[idx-1], t[idx]]: constant
@@ -298,11 +341,10 @@ class SyntheticDataset(Dataset):
         c = self.cfg
         if idx >= c["n_frames"]:
             return None
-        # laps > 1 repeats the closed trajectory: lap 2+ revisits lap 1
-        n_lap = c["n_frames"] // int(c.get("laps", 1))
-        R_wc, t_wc = _pose_cam_to_world(c["motion"], idx, n_lap,
-                                        c["radius"])
-        img, depth_img = self._render(R_wc, t_wc, c["depth"])
+        views = self._views(idx)
+        R_wc, t_wc, _ = views[0]
+        img, depth_img = self._render(*views[0],
+                                      clean=self._ahead.pop((idx, 0), None))
         gain = 1.0
         if c["exposure"] > 0:
             gain = 1.0 + c["exposure"] * np.sin(
@@ -312,8 +354,8 @@ class SyntheticDataset(Dataset):
         baseline = 0.0
         if c["stereo"]:
             baseline = c["baseline"]
-            t_wc_right = t_wc + R_wc @ np.array([baseline, 0.0, 0.0])
-            img_right, _ = self._render(R_wc, t_wc_right, False)
+            img_right, _ = self._render(
+                *views[1], clean=self._ahead.pop((idx, 1), None))
             if gain != 1.0:
                 img_right = (img_right * gain).clip(0.0, 1.0) \
                     .astype(np.float32)

@@ -17,7 +17,8 @@ Importing this package registers the five systems in
   global structure from motion.
 
 :mod:`~gslam_tpu_torch.models.graft` holds the fused tracking step
-``track_forward``.  Each system runs on the CUDA card unless created with
+``track_forward``, :mod:`~gslam_tpu_torch.models.pipeline` the
+messenger-wired ``SLAMPipeline``.  Each system runs on the CUDA card unless created with
 ``device="cpu"``.
 """
 

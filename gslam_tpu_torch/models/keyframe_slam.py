@@ -337,6 +337,9 @@ class KeyframeSLAM:
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
         self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
+        # False: the K-frame body runs eagerly on the card too (the
+        # CLI's -debug.nojit), the counterpart of jax_disable_jit
+        self.batch_graphs = True
         self.batch_accepted: List[int] = []  # frames each dispatch took
         # VI state: the factor composed since the last keyframe, the
         # inter-keyframe factors (numpy) for VI BA and rotation-only
@@ -746,10 +749,11 @@ class KeyframeSLAM:
             kf_pose=self.arena.frame_pose[self.last_kf_id][:7])
 
     def _run_batch(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
-        """The K-frame body: eager on the CPU; on the card, a replay of
-        this system's graph for the inputs' shapes (captured on first
-        use), its outputs copied out of the graph's buffers."""
-        if self.device.type != "cuda":
+        """The K-frame body: eager on the CPU (and with ``batch_graphs``
+        False); on the card, a replay of this system's graph for the
+        inputs' shapes (captured on first use), its outputs copied out of
+        the graph's buffers."""
+        if self.device.type != "cuda" or not self.batch_graphs:
             return self._batch_body(inputs)
         key = tuple(inputs["imgs"].shape)
         graph = self._graphs.get(key)

@@ -1,8 +1,9 @@
 """Logging facade: counterpart of ``gslam_tpu/utils/logging.py``.
 
 Python's stdlib logging under the root logger ``gslam_tpu_torch``, its
-level from ``GSLAM_LOGLEVEL`` (default INFO), and ``check``, which
-raises where a glog ``CHECK`` would abort.
+level from ``GSLAM_LOGLEVEL`` (default INFO), and ``check``,
+``check_eq`` and ``check_near``, which raise where a glog ``CHECK``
+would abort.
 """
 
 from __future__ import annotations
@@ -34,3 +35,13 @@ def check(cond: bool, msg: str = "") -> None:
     if not cond:
         raise AssertionError(f"CHECK failed: {msg}")
 
+
+def check_eq(a, b, msg: str = "") -> None:
+    if a != b:
+        raise AssertionError(f"CHECK_EQ failed: {a!r} != {b!r} {msg}")
+
+
+def check_near(a, b, tol: float = 1e-6, msg: str = "") -> None:
+    if abs(a - b) > tol:
+        raise AssertionError(
+            f"CHECK_NEAR failed: |{a!r} - {b!r}| > {tol} {msg}")

@@ -5,11 +5,14 @@ accumulating count / total / min / max.  PyTorch returns before the card
 finishes, so a section that times device work calls :meth:`Timer.block`
 with the tensors it produced before it closes, which waits for the card
 (``torch.cuda.synchronize``); on CPU tensors it returns at once.  Each
-``KeyframeSLAM`` owns one timer (``slam.timer``).
+SLAM system owns one timer (``slam.timer``); the process-wide
+:data:`timer` holds the app layer's ``app/*`` sections, which the CLI
+reports beside the system's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from contextlib import contextmanager
@@ -84,6 +87,16 @@ class Timer:
     def reset(self) -> None:
         self._sections.clear()
 
+    @classmethod
+    def merged(cls, *timers: "Timer") -> "Timer":
+        """A timer holding copies of the sections of ``timers`` (a later
+        timer's section wins a name that two share)."""
+        out = cls()
+        for t in timers:
+            for name, sec in t._sections.items():
+                out._sections[name] = dataclasses.replace(sec)
+        return out
+
     def table(self) -> str:
         rows = ["{:<28s} {:>8s} {:>12s} {:>12s} {:>12s} {:>12s}".format(
             "section", "count", "total(s)", "mean(ms)", "min(ms)", "max(ms)")]
@@ -93,6 +106,10 @@ class Timer:
                                    (s.min if s.count else 0.0) * 1e3,
                                    s.max * 1e3))
         return "\n".join(rows)
+
+    def dump(self) -> None:
+        if self._sections:
+            print(self.table())
 
 
 class TicToc:
@@ -106,3 +123,7 @@ class TicToc:
 
     def toc(self) -> float:
         return time.perf_counter() - self._t
+
+
+#: process-wide timer of the app layer (``app/frame``, ``app/viz_live``)
+timer = Timer()

@@ -62,7 +62,7 @@ def worker() -> int:
     inputs = example_inputs(cs.H, cs.W, cs.M, cs.K, device="cuda")
     img, _, _, desc, valid, _ = inputs
     f = frontend.extract_features(img, max_kps=cs.K)
-    prob = cs.bench_problem()
+    prob = cs.bench.ba_problem(torch.device("cuda"))
     lam = torch.tensor(1e-3, device="cuda")
     camera, frames = cs.load_frames()
     frame = torch.as_tensor(frames[0].image, device="cuda")

@@ -182,8 +182,8 @@ def tune(name, lib, variants, to_flags, cases, check, call):
 def ba_cases():
     """B5's and B6's cases: (problem as given, without pads) on the
     local-BA problem and chip_smoke.SCHUR_EXTRA's."""
-    bench = cs.bench_problem()
-    cases = {"C8_P1024_O8": (bench, bench)}
+    local = cs.bench.ba_problem(torch.device("cuda"))
+    cases = {"C8_P1024_O8": (local, local)}
     for label, case in cs.SCHUR_EXTRA.items():
         fields = cs.ba_case(**case, seed=1)
         cases[label] = (cs.to_problem(fields, "cuda"), cs.to_problem(

@@ -24,7 +24,6 @@ import torch
 from PIL import Image
 
 import gslam_tpu.datasets.dronemap  # noqa: F401  (registers ".dronemap")
-from chip_smoke import write_png as stdlib_png
 from chip_smoke import write_tum_sequence
 from gslam_tpu.app.registry import open_dataset as j_open
 from gslam_tpu.datasets.synthetic import SyntheticDataset as JData
@@ -34,6 +33,7 @@ from gslam_tpu_torch.core.image import to_gray_f32
 from gslam_tpu_torch.datasets import FrameData
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval import trajectory as tt
+from gslam_tpu_torch.utils.png import write_png as stdlib_png
 
 FIELDS = ("image", "color", "depth", "image_right", "gt_pose", "imu", "gps")
 
@@ -391,6 +391,42 @@ def test_synthetic_distortion_frames(motion):
             if va is not None:
                 assert np.abs(vb - va).max() == 0.0, name
         assert fb.camera is b.camera
+
+
+RENDER_AHEAD_CASES = {
+    "ring_two_laps": dict(n_frames=8, n_points=300, width=160, height=120,
+                          motion="ring_out", texture=True, noise=0.01,
+                          laps=2, radius=14.0, world_extent=8.0),
+    "line_stereo_imu": dict(n_frames=6, n_points=300, width=160,
+                            height=120, motion="line", texture=True,
+                            noise=0.01, stereo=True, imu=True,
+                            imu_noise=0.01, exposure=0.2),
+}
+
+
+@pytest.mark.parametrize("frames", [None, 3])
+@pytest.mark.parametrize("case", sorted(RENDER_AHEAD_CASES))
+def test_render_ahead_frames_equal_the_reference(case, frames):
+    """Views rendered ahead on threads, then finished in order with the
+    sequence's draws: every frame bit for bit the JAX package's, the
+    first read before, frames past the ahead window rendered as read."""
+    cfg = RENDER_AHEAD_CASES[case]
+    a, b = JData(**cfg), SyntheticDataset(**cfg)
+    assert a.open("synth://") and b.open("synth://")
+    got = [b.grab_frame()]
+    b.render_ahead(3, frames)
+    assert len(b._ahead) == (cfg["n_frames"] - 1 if frames is None
+                             else frames) * (2 if cfg.get("stereo") else 1)
+    got += list(b)
+    assert b._ahead == {}
+    want = list(a)
+    assert len(got) == len(want) == cfg["n_frames"]
+    for fa, fb in zip(want, got):
+        for name in ("image", "depth", "gt_pose", "image_right", "imu"):
+            va, vb = getattr(fa, name), getattr(fb, name)
+            assert (va is None) == (vb is None), name
+            if va is not None:
+                np.testing.assert_array_equal(vb, va, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])

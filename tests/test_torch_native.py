@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from chip_smoke import write_png as stdlib_png
 from gslam_tpu.datasets import native_loader as jn
 from gslam_tpu_torch.datasets import native_loader as tn
 from gslam_tpu_torch.ops.cuda.build import BUILD_DIR
+from gslam_tpu_torch.utils.png import write_png as stdlib_png
 
 
 def pil_png(path, arr):
