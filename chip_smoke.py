@@ -1735,9 +1735,11 @@ NESTED_SECTIONS = ("loop_gba", "vi_local_ba")
 
 
 def split_ms(slam, n):
-    """Wall ms per frame of each timer section."""
+    """Host ms per frame of each timer span named ``<system>/<layer>``
+    (child spans, ``<system>/<layer>/<part>``, and counters left out)."""
     return {k.split("/")[1]: v["total"] * 1e3 / n
-            for k, v in slam.timer.stats().items()}
+            for k, v in slam.timer.stats().items()
+            if v["kind"] == "span" and k.count("/") == 1}
 
 
 def rest_ms(ms_per_frame, split):

@@ -17,7 +17,12 @@ counterpart of the reference's Qt viewer: trajectory and map export
 
 Where the reference leans on JAX: ``-profile DIR`` records
 ``torch.profiler`` (CPU and, on the card, CUDA activity) and writes a
-Chrome trace into DIR; ``-debug true`` fails at the first non-finite
+Chrome trace into DIR.  While it records, each timer span of the app and
+of the system (``utils/timer.py``) opens a range of its name in the
+trace, ``frame=<id>`` its args, beside the kernels it queued, and on the
+card also times itself with a pair of CUDA events (``<span>:device`` in
+the report's timing); with no ``-profile`` a span reads only the host
+clock.  ``-debug true`` fails at the first non-finite
 value in what a frame's step returns or in the map's keyframe poses
 after it, naming the frame (the intended NaN of a masked singular solve
 inside a step is not an output); ``-debug.nojit true`` runs
@@ -110,7 +115,8 @@ def _check_finite(slam, step_out, frame_id) -> None:
 
 class _Profile:
     """-profile DIR: torch.profiler over the run, a Chrome trace into
-    DIR at the end."""
+    DIR at the end.  The timers' spans open their ranges and device
+    events only while it records."""
 
     def __init__(self, out_dir: str, device: torch.device):
         from torch.profiler import ProfilerActivity, profile
@@ -145,7 +151,8 @@ def _run_sequence(s: Svar):
     slam = _build_slam(ds, s, device)
     skip = s.arg("Dataset.Skip", 0, "frames to skip")
     max_frames = s.arg("Dataset.Max", 0, "max frames (0 = all)")
-    profile_dir = s.arg("profile", "", "write a torch.profiler trace here")
+    profile_dir = s.arg("profile", "", "write a torch.profiler trace here, "
+                        "each timer span a range beside its kernels")
     # per-frame metrics as streamed JSON lines
     metrics_path = s.arg("metrics", "", "stream per-frame metric JSONL here")
     metrics = None
@@ -178,6 +185,7 @@ def _run_sequence(s: Svar):
             return
         n_stats0 = len(getattr(slam, "stats", []))
         t0 = time.perf_counter()
+        timer.frame = buf[0][0]
         with timer.section("app/frame"):
             out = slam.track_batch([f for _, f in buf])
             sync()
@@ -200,6 +208,7 @@ def _run_sequence(s: Svar):
                     flush_batch()
             else:
                 t0 = time.perf_counter()
+                timer.frame = fr.id
                 with timer.section("app/frame"):
                     out = slam.track(fr)
                     sync()

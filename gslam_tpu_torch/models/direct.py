@@ -252,12 +252,12 @@ class DirectOdometry:
     # ------------------------------------------------------------------
     def track(self, frame: FrameData) -> torch.Tensor:
         c = self.cfg
+        self.timer.frame = frame.id
         depth = None if frame.depth is None else \
             torch.as_tensor(frame.depth, device=self.device)
         with self.timer.section("direct/pyramid"):
             pyr = self._pyramid(torch.as_tensor(frame.image,
                                                 device=self.device))
-            self.timer.block(pyr[0])
 
         frac = 0.0
         err = 0.0

@@ -237,8 +237,10 @@ class BatchGraph:
     The kernel wrappers count launches when Python calls them, so a
     replay moves no counter: ``captured`` holds the launches one replay
     makes (counted during the capture, which launches nothing on the
-    card) and ``replays`` the replays so far.  ``capture_s`` and
-    ``pool_bytes`` (the graph's memory pool) are for the record."""
+    card) and ``replays`` the replays so far.  ``capture_s``, the host
+    seconds of the capture and instantiation, is what the timer counter
+    ``slam/track_batch/capture_s`` adds up; ``pool_bytes`` is the graph's
+    memory pool."""
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor]):
         self.static = {k: v.clone() for k, v in inputs.items()}
@@ -431,6 +433,7 @@ class KeyframeSLAM:
         """Track one frame; returns its cam->world pose (7,) on the
         device."""
         c = self.cfg
+        self.timer.frame = frame.id
         img = torch.as_tensor(frame.image, device=self.device)
         with self.timer.section("slam/extract"):
             if c.n_levels > 1:
@@ -442,7 +445,6 @@ class KeyframeSLAM:
                 feats = extract_features(img, max_kps=c.max_kps,
                                          threshold=c.fast_threshold,
                                          use_kernels=c.use_kernels)
-            self.timer.block(feats.desc)
         self._set_keypoint_samples(frame, img, feats)
         imu_delta = self._preintegrate(frame)
 
@@ -625,32 +627,40 @@ class KeyframeSLAM:
         c = self.cfg
         cam = self.camera
         arena = self.arena
-        with self.timer.section("slam/track_fused"):
-            last_kf = self._kf_tensor()
-            slab_ids, xyz, desc, valid = self._slab(arena, last_kf)
-            uv_pred, proj_ok = cam.project(se3_apply(pose_cw_pred, xyz))
-            visible = valid & proj_ok
-            match = (match_hamming_gated if c.use_kernels
-                     else match_descriptors_gated)
-            m = match(desc, visible, feats.desc, feats.valid, uv_pred,
-                      feats.uv, c.gate_radius_px, max_dist=c.match_max_dist,
-                      ratio=c.match_ratio)
-            rays = cam.unproject(feats.uv[m.idx.clamp_min(0).long()])[:, :2]
-            T, inl, n = self._find_pnp(xyz, rays, m.valid)
-            # landmark tracking statistics (visible / found)
-            new_vis = arena.point_visible.index_add(0, slab_ids,
-                                                    visible.to(torch.int32))
-            new_fnd = arena.point_found.index_add(
-                0, slab_ids, (m.valid & inl).to(torch.int32))
-            jump = torch.linalg.vector_norm(
-                se3_inverse(T)[:3] - se3_inverse(pose_cw_pred)[:3])
-            sc = torch.stack([m.count.to(torch.float32),
-                              n.to(torch.float32), jump,
-                              feats.count.to(torch.float32)]).cpu()
+        tm = self.timer
+        with tm.section("slam/track_fused"):
+            with tm.section("slam/track_fused/slab"):
+                last_kf = self._kf_tensor()
+                slab_ids, xyz, desc, valid = self._slab(arena, last_kf)
+            with tm.section("slam/track_fused/match"):
+                uv_pred, proj_ok = cam.project(se3_apply(pose_cw_pred, xyz))
+                visible = valid & proj_ok
+                match = (match_hamming_gated if c.use_kernels
+                         else match_descriptors_gated)
+                m = match(desc, visible, feats.desc, feats.valid, uv_pred,
+                          feats.uv, c.gate_radius_px,
+                          max_dist=c.match_max_dist, ratio=c.match_ratio)
+                rays = cam.unproject(
+                    feats.uv[m.idx.clamp_min(0).long()])[:, :2]
+            with tm.section("slam/track_fused/pnp"):
+                T, inl, n = self._find_pnp(xyz, rays, m.valid)
+            with tm.section("slam/track_fused/fetch"):
+                # landmark tracking statistics (visible / found)
+                new_vis = arena.point_visible.index_add(
+                    0, slab_ids, visible.to(torch.int32))
+                new_fnd = arena.point_found.index_add(
+                    0, slab_ids, (m.valid & inl).to(torch.int32))
+                jump = torch.linalg.vector_norm(
+                    se3_inverse(T)[:3] - se3_inverse(pose_cw_pred)[:3])
+                sc = torch.stack([m.count.to(torch.float32),
+                                  n.to(torch.float32), jump,
+                                  feats.count.to(torch.float32)]).cpu()
         self.arena = arena.replace(point_visible=new_vis,
                                    point_found=new_fnd)
         self._last_track = (slab_ids, m, inl)
         sc = sc.tolist()
+        tm.count("slam/track_fused/matches", int(sc[0]))
+        tm.count("slam/track_fused/inliers", int(sc[1]))
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
 
     # ------------------------------------------------------------------
@@ -684,18 +694,22 @@ class KeyframeSLAM:
             imgs = torch.from_numpy(np.stack(
                 [np.asarray(f.image, np.float32) for f in batch])).to(dev)
             uniforms = self._batch_uniforms(K)
-            with self.timer.section("slam/track_batch"):
+            tm = self.timer
+            tm.frame = fr.id
+            with tm.section("slam/track_batch"):
                 slab_ids, xyz, desc, valid = self._slab(self.arena,
                                                         self._kf_tensor())
                 res = self._run_batch(self._batch_inputs(imgs, uniforms, xyz,
                                                          desc, valid))
-                rows = res.rows.cpu().numpy()         # the one fetch
+                with tm.section("slam/track_batch/fetch"):
+                    rows = res.rows.cpu().numpy()     # the one fetch
             n_inl = rows[:, 14].astype(np.int64)
             n_match = rows[:, 15].astype(np.int64)
             n_feat = rows[:, 16].astype(np.int64)
             trig = np.nonzero(rows[:, 17] > 0.5)[0]
             n_accept = int(trig[0]) if len(trig) else K
             self.batch_accepted.append(n_accept)
+            tm.count("slam/track_batch/accepted", n_accept)
             for j in range(n_accept):
                 self.trajectory.append(res.rows[j, :7])
                 self._traj_rel.append((self.last_kf_id, res.rows[j, 7:14]))
@@ -704,6 +718,8 @@ class KeyframeSLAM:
                     "n_features": int(n_feat[j]), "n_matches": int(n_match[j]),
                     "n_inliers": int(n_inl[j]), "n_kf": self._n_frames_host,
                     "n_points": self._n_points_host})
+                tm.count("slam/track_batch/matches", int(n_match[j]))
+                tm.count("slam/track_batch/inliers", int(n_inl[j]))
             # the statistics cover the accepted frames and the trigger
             # frame: applied even when a trigger heads the batch
             a = self.arena
@@ -720,6 +736,7 @@ class KeyframeSLAM:
             i += n_accept
             if n_accept < K:
                 j = n_accept
+                tm.frame = batch[j].id
                 out.append(self._handle_trigger_frame(
                     batch[j], imgs[j], res, slab_ids, bool(rows[j, 18] > 0.5),
                     int(n_inl[j]), int(n_match[j]), int(n_feat[j])))
@@ -758,7 +775,10 @@ class KeyframeSLAM:
         key = tuple(inputs["imgs"].shape)
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = BatchGraph(self._batch_body, inputs)
+            with self.timer.section("slam/track_batch/capture"):
+                graph = self._graphs[key] = BatchGraph(self._batch_body,
+                                                       inputs)
+            self.timer.count("slam/track_batch/capture_s", graph.capture_s)
         return _clone(graph(inputs))
 
     def _batch_body(self, x: Dict[str, torch.Tensor]) -> BatchResult:
@@ -1012,7 +1032,6 @@ class KeyframeSLAM:
                     self.pose_wc = se3_inverse(
                         self.arena.frame_pose[fid][:7])
                     self.velocity = self._identity()
-                self.timer.block(self.arena.frame_pose)
         if self.cfg.enable_map_hygiene:
             self._map_hygiene()
 
@@ -1194,21 +1213,35 @@ class KeyframeSLAM:
         ``resolve_ba_kernels`` allows (at most 32 cameras), the plain
         Schur path above that."""
         c = self.cfg
-        with self.timer.section("slam/local_ba"):
-            kf = self._kf_tensor()
-            cam_ids, point_ids, problem = self._local_ba_window(self.arena,
-                                                                kf)
+        tm = self.timer
+        with tm.section("slam/local_ba"):
+            with tm.section("slam/local_ba/window"):
+                kf = self._kf_tensor()
+                cam_ids, point_ids, problem = self._local_ba_window(
+                    self.arena, kf)
             kernels = resolve_ba_kernels(c.use_kernels, cam_ids.shape[0])
-            if self.vi_ready and c.enable_vi_ba:
-                with self.timer.section("slam/vi_local_ba"):
-                    problem = self._vi_local_ba(problem, cam_ids, kernels)
-            else:
-                problem, _ = bundle_adjust(problem, iters=c.ba_iters,
-                                           use_kernels=kernels)
-            self.arena = write_back_to_arena(self.arena, problem, cam_ids,
-                                             point_ids)
-            self.pose_wc = se3_inverse(self.arena.frame_pose[kf.long()][:7])
-            self.timer.block(self.pose_wc)
+            with tm.section("slam/local_ba/lm"):
+                if self.vi_ready and c.enable_vi_ba:
+                    with tm.section("slam/vi_local_ba"):
+                        problem = self._vi_local_ba(problem, cam_ids,
+                                                    kernels)
+                    # an accepted step lowers the cost, a rejected one
+                    # keeps it
+                    costs = self.vi_costs
+                    accepted = (costs[1:] < costs[:-1]).sum()
+                    iters = costs.shape[0] - 1
+                else:
+                    problem, st = bundle_adjust(problem, iters=c.ba_iters,
+                                                use_kernels=kernels)
+                    accepted = st.accepted.sum()
+                    iters = st.accepted.shape[0]
+            with tm.section("slam/local_ba/write_back"):
+                self.arena = write_back_to_arena(self.arena, problem,
+                                                 cam_ids, point_ids)
+                self.pose_wc = se3_inverse(
+                    self.arena.frame_pose[kf.long()][:7])
+        tm.count("slam/local_ba/lm_iters", iters)
+        tm.count("slam/local_ba/lm_accepted", accepted)
 
     def _vi_local_ba(self, problem, cam_ids: torch.Tensor,
                      use_kernels: bool):

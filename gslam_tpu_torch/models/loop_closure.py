@@ -430,7 +430,6 @@ class LoopCloser:
                 arena, _ = global_bundle_adjust(
                     arena, camera, iters=global_ba_iters, sweeps=1,
                     use_kernels=self.use_kernels)
-                self.timer.block(arena.frame_pose)
         self.closed.append((kf_id, cand))
         self._last_closed_kf = kf_id
         return arena, True

@@ -77,12 +77,12 @@ class FrameToFrameOdometry:
         self.stats: List[dict] = []
 
     def track(self, frame: FrameData) -> torch.Tensor:
+        self.timer.frame = frame.id
         img = torch.as_tensor(frame.image, device=self.device)
         with self.timer.section("odom/extract"):
             feats = extract_features(img, max_kps=self.max_kps,
                                      threshold=self.fast_threshold,
                                      use_kernels=self.use_kernels)
-            self.timer.block(feats.desc)
         n_matches = 0
         n_inliers = 0
         if self.prev is not None:
@@ -90,7 +90,6 @@ class FrameToFrameOdometry:
             with self.timer.section("odom/match"):
                 m = match(self.prev.desc, self.prev.valid, feats.desc,
                           feats.valid)
-                self.timer.block(m.idx)
             n_matches = int(m.count)
             if n_matches >= MIN_MATCHES:
                 rel = self._relative_pose(m, feats)
@@ -131,7 +130,6 @@ class FrameToFrameOdometry:
                 T, _, n = find_pnp_ransac(pts3, rays_cur, ok,
                                           threshold=PNP_THRESHOLD,
                                           B=RANSAC_B, **draw)
-                self.timer.block(T)
             n = int(n)
             return (T, n) if n >= MIN_INLIERS else None
         # mono: two-view geometry with H / E model selection (planar-safe)
@@ -142,7 +140,6 @@ class FrameToFrameOdometry:
             tv = two_view_geometry(rays_prev, rays_cur, m.valid,
                                    sigma=1.0 / float(cam.fx), B=RANSAC_B,
                                    uniforms=draws)
-            self.timer.block(tv.T_21)
         n = int(tv.n_inliers)
         if n < MIN_INLIERS:
             return None

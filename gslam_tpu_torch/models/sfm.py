@@ -344,7 +344,6 @@ class GlobalSfM:
             desc = torch.stack([f.desc for f in feats])
             valid = torch.stack([f.valid for f in feats])
             rays = torch.stack([cam.unproject(f.uv) for f in feats])
-            self.timer.block(rays)
 
         # every pair, in chunks of pair_chunk (the draws' schedule)
         pairs = np.array([(i, j) for i in range(F) for j in range(i + 1, F)],

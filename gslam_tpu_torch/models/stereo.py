@@ -58,7 +58,6 @@ class StereoSLAM(KeyframeSLAM):
                                  frame.stereo_baseline)
             depth = torch.where(torch.isfinite(depth), depth,
                                 depth.new_zeros(()))
-            self.timer.block(depth)
         return depth
 
 

@@ -179,9 +179,10 @@ def test_timer_sections():
     tm = Timer()
     for _ in range(3):
         with tm.section("slam/extract"):
-            tm.block(torch.zeros(2))
+            torch.zeros(2).add_(1)
     st = tm.stats()["slam/extract"]
     assert st["count"] == 3 and st["total"] >= st["max"] >= st["min"] >= 0
+    assert st["kind"] == "span" and st["parent"] is None
     assert "slam/extract" in tm.table()
     with pytest.raises(KeyError):
         tm.leave("nope")
