@@ -26,7 +26,8 @@ clock.  ``-debug true`` fails at the first non-finite
 value in what a frame's step returns or in the map's keyframe poses
 after it, naming the frame (the intended NaN of a masked singular solve
 inside a step is not an output); ``-debug.nojit true`` runs
-``track_batch``'s K-frame body eagerly instead of as its CUDA graph.
+``track_batch``'s K-frame body and ``track``'s PnP RANSAC + GN refine
+eagerly instead of as their CUDA graphs.
 """
 
 from __future__ import annotations
@@ -85,8 +86,10 @@ def _build_slam(dataset, s: Svar, device: torch.device):
     if load_map and hasattr(slam, "load_map"):
         slam.load_map(load_map)
         log.info("loaded map arena from %s", load_map)
-    # -debug.nojit true: the K-frame body eagerly, not as a CUDA graph
-    if s.arg("debug.nojit", False, "run track_batch's body eagerly") \
+    # -debug.nojit true: the K-frame body and track's PnP eagerly, not as
+    # CUDA graphs
+    if s.arg("debug.nojit", False,
+             "run track_batch's body and track's PnP eagerly") \
             and hasattr(slam, "track_batch"):
         slam.batch_graphs = False
     return slam

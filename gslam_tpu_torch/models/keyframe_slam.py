@@ -15,7 +15,9 @@ frame per ``track`` call or K per ``track_batch`` dispatch:
             accepts the frames before the first that trips a predicate
             and hands that frame's frozen state to the keyframe or
             relocalization path.  On the card the K-frame body is one
-            captured CUDA graph (:class:`BatchGraph`)
+            captured CUDA graph (:class:`BatchGraph`), and so is a tracked
+            frame's PnP RANSAC + GN refine (one graph per process and
+            shape, :meth:`KeyframeSLAM._track_pnp`)
   IMU:      a frame's samples are preintegrated (Forster factor) and
             composed since the last keyframe; the gyro delta replaces the
             rotation of the constant-velocity prediction; a keyframe emits
@@ -53,6 +55,8 @@ factors one more, the factor's).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -224,15 +228,21 @@ def body_launches() -> Dict[str, int]:
 
 
 class BatchGraph:
-    """The K-frame body of ``track_batch`` captured as one CUDA graph:
-    the counterpart of the JAX package's single ``lax.scan`` dispatch.
+    """A body over a dict of static input tensors captured as one CUDA
+    graph: the counterpart of one jitted JAX executable.  It holds the
+    K-frame body of ``track_batch`` (one ``lax.scan`` dispatch in the JAX
+    package), one per system and batch shape, and a tracked frame's PnP
+    RANSAC + GN refine, one per process and shape (``_PNP_GRAPHS``).
 
     The first inputs are cloned into static buffers, the body runs once
     on a side stream (warm-up: libraries, caches and the kernels' first
     launches), then once under ``torch.cuda.graph``.  A call copies its
     inputs into the static buffers and replays; the outputs are the
     graph's own buffers, overwritten by the next replay.  Nothing falls
-    back to the eager body: a failed capture or replay raises.
+    back to the eager body: a failed capture or replay raises.  The
+    capture restricts only its own thread (``thread_local``), so that
+    another thread of the process (the app pipeline's consumers) may use
+    the card meanwhile.
 
     The kernel wrappers count launches when Python calls them, so a
     replay moves no counter: ``captured`` holds the launches one replay
@@ -255,7 +265,7 @@ class BatchGraph:
         before = body_launches()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = body(self.static)
         self.graph.instantiate()
         self.capture_s = time.perf_counter() - t0
@@ -264,12 +274,28 @@ class BatchGraph:
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
         self.replays = 0
 
-    def __call__(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
+    def __call__(self, inputs: Dict[str, torch.Tensor]):
         for k, v in inputs.items():
             self.static[k].copy_(v)
         self.graph.replay()
         self.replays += 1
         return self.out
+
+
+def _pnp_body(B: int, threshold: float, max_depth: float, refine_iters: int,
+              x: Dict[str, torch.Tensor]):
+    """``find_pnp_ransac`` over the static inputs of a tracked frame's
+    PnP graph: slab points, rays, match mask and the frame's uniforms."""
+    return find_pnp_ransac(x["xyz"], x["rays"], x["valid"],
+                           threshold=threshold, B=B, refine_iters=refine_iters,
+                           max_depth=max_depth, uniforms=x["uniforms"])
+
+
+# tracked frames' PnP graphs, one per process and key (the counterpart of
+# the JAX package's jit cache: every system of the process replays one
+# graph), and the lock around their shared buffers
+_PNP_GRAPHS: Dict[tuple, BatchGraph] = {}
+_PNP_LOCK = threading.Lock()
 
 
 class KeyframeSLAM:
@@ -339,8 +365,9 @@ class KeyframeSLAM:
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
         self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
-        # False: the K-frame body runs eagerly on the card too (the
-        # CLI's -debug.nojit), the counterpart of jax_disable_jit
+        # False: the K-frame body and a tracked frame's PnP run eagerly on
+        # the card too (the CLI's -debug.nojit), the counterpart of
+        # jax_disable_jit
         self.batch_graphs = True
         self.batch_accepted: List[int] = []  # frames each dispatch took
         # VI state: the factor composed since the last keyframe, the
@@ -622,8 +649,9 @@ class KeyframeSLAM:
 
     def _track_local_map(self, feats: Features, pose_cw_pred):
         """Slab gather -> projection under the predicted pose -> gated
-        matching -> PnP RANSAC + GN refine, then ONE packed fetch of
-        (match count, inlier count, pose jump, feature count)."""
+        matching -> PnP RANSAC + GN refine (:meth:`_track_pnp`), then ONE
+        packed fetch of (match count, inlier count, pose jump, feature
+        count)."""
         c = self.cfg
         cam = self.camera
         arena = self.arena
@@ -643,7 +671,7 @@ class KeyframeSLAM:
                 rays = cam.unproject(
                     feats.uv[m.idx.clamp_min(0).long()])[:, :2]
             with tm.section("slam/track_fused/pnp"):
-                T, inl, n = self._find_pnp(xyz, rays, m.valid)
+                T, inl, n = self._track_pnp(xyz, rays, m.valid)
             with tm.section("slam/track_fused/fetch"):
                 # landmark tracking statistics (visible / found)
                 new_vis = arena.point_visible.index_add(
@@ -662,6 +690,43 @@ class KeyframeSLAM:
         tm.count("slam/track_fused/matches", int(sc[0]))
         tm.count("slam/track_fused/inliers", int(sc[1]))
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
+
+    def _track_pnp(self, xyz, rays, valid):
+        """A tracked frame's PnP RANSAC + GN refine.  On the card with
+        ``batch_graphs``: the frame's (B, 4) uniforms drawn here, then a
+        replay of the process's CUDA graph of ``find_pnp_ransac`` for what
+        the input shows (device, N, dtype, B, threshold, max depth, GN
+        iterations), captured on first use; copy-in, replay and the
+        outputs' copies out hold one lock.  Elsewhere :meth:`_find_pnp`,
+        eagerly.  The draw takes the generator (or the ``uniforms`` hook)
+        as the eager call inside ``ransac_sample_indices`` does, so both
+        give the same bits.  Counters: ``slam/track_fused/pnp_graph`` (1 a
+        replay, 0 an eager call) and ``slam/track_fused/capture_s`` (each
+        capture's ``BatchGraph.capture_s``)."""
+        tm = self.timer
+        if self.device.type != "cuda" or not self.batch_graphs:
+            tm.count("slam/track_fused/pnp_graph", 0)
+            return self._find_pnp(xyz, rays, valid)
+        thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
+        if self._uniforms is not None:
+            u = self._uniforms().to(self.device)
+        else:
+            u = torch.rand((RANSAC_B, 4), generator=self._gen,
+                           device=self.device)
+        inputs = dict(xyz=xyz, rays=rays, valid=valid, uniforms=u)
+        # (device, N, dtype) from the input, then _pnp_body's parameters:
+        # B, threshold, max_depth, refine_iters (find_pnp_ransac's default)
+        key = (xyz.device, xyz.shape[0], xyz.dtype,
+               RANSAC_B, thr, float("inf"), 5)
+        with _PNP_LOCK:
+            graph = _PNP_GRAPHS.get(key)
+            if graph is None:
+                graph = _PNP_GRAPHS[key] = BatchGraph(
+                    functools.partial(_pnp_body, *key[3:]), inputs)
+                tm.count("slam/track_fused/capture_s", graph.capture_s)
+            out = _clone(graph(inputs))
+        tm.count("slam/track_fused/pnp_graph", 1)
+        return out
 
     # ------------------------------------------------------------------
     def track_batch(self, frames: List[FrameData]) -> List[torch.Tensor]:
