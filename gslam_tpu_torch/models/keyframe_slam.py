@@ -8,7 +8,11 @@ frame per ``track`` call or K per ``track_batch`` dispatch:
   track:    extract (FAST + NMS (B1), BRIEF (B2); once per level of an
             image pyramid with ``n_levels`` > 1) -> covisibility slab ->
             projection under the constant-velocity prediction -> gated
-            Hamming matching (B4) -> PnP RANSAC + GN refine
+            Hamming matching (B4) -> PnP RANSAC + GN refine; a frame that
+            fails the gates is tracked again before it coasts: against the
+            reference keyframe's map points with no pose prior (ungated
+            matching (B3), RANSAC with ``REF_B`` hypotheses), then against
+            the local map under that pose
   batch:    ``track_batch`` runs K frames of that chain against one slab
             with the keyframe and tracking-lost predicates evaluated on
             the device, and fetches one packed (K, 19) summary; the host
@@ -89,7 +93,9 @@ from gslam_tpu_torch.models.loop_closure import (
     LoopCloser, inside_volume, map_volume,
 )
 from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
-from gslam_tpu_torch.ops.cuda.matcher import match_hamming_gated
+from gslam_tpu_torch.ops.cuda.matcher import (
+    match_hamming, match_hamming_gated,
+)
 from gslam_tpu_torch.ops.frontend import (
     Features, extract_features, extract_features_pyramid,
 )
@@ -110,6 +116,9 @@ from gslam_tpu_torch.utils.timer import Timer
 RANSAC_B = 256          # hypotheses per frame (find_pnp_ransac's default)
 RELOC_B = 1024          # per relocalization candidate: no pose prior
 RELOC_CANDIDATES = 8
+REF_B = 4096            # the reference-keyframe path: no pose prior, and
+#                         the fewest correct matches of an ungated match
+REF_SEED_OFFSET = 0x5EED   # the reference-keyframe path's generator seed
 MONO_MIN_MATCHES = 30   # two-view bootstrap: matches to try, inliers to
 MONO_MIN_INLIERS = 20   # accept
 
@@ -350,6 +359,11 @@ class KeyframeSLAM:
         self._uniforms = uniforms
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(c.seed)
+        # the reference-keyframe path's draws: a generator of its own, so
+        # that the frames it runs on leave the main draws (and a
+        # ``uniforms`` hook's sequence) where the coasting path leaves them
+        self._ref_gen = torch.Generator(device=self.device)
+        self._ref_gen.manual_seed(c.seed + REF_SEED_OFFSET)
         ident = self._identity()
         self.pose_wc = ident              # current cam->world
         self.velocity = ident             # T_cw(t) * T_cw(t-1)^-1
@@ -430,13 +444,23 @@ class KeyframeSLAM:
             torch.arange(self.cfg.max_kps, device=self.device)
             < self.arena.frame_kp_count[fid])
 
+    def _draw(self, generator=None) -> dict:
+        """A RANSAC draw's source, as ``find_pnp_ransac`` takes it:
+        ``generator`` where given, else the system's generator, or the
+        ``uniforms`` hook's next uniforms where there is one."""
+        if generator is not None:
+            return dict(generator=generator)
+        if self._uniforms is None:
+            return dict(generator=self._gen)
+        return dict(uniforms=self._uniforms())
+
     def _find_pnp(self, xyz, rays, valid, B=RANSAC_B,
-                  max_depth=float("inf")):
+                  max_depth=float("inf"), generator=None):
+        """PnP RANSAC + GN refine, drawing from :meth:`_draw`."""
         thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
-        draw = dict(generator=self._gen) if self._uniforms is None \
-            else dict(uniforms=self._uniforms())
         return find_pnp_ransac(xyz, rays, valid, threshold=thr, B=B,
-                               max_depth=max_depth, **draw)
+                               max_depth=max_depth,
+                               **self._draw(generator))
 
     def _kp_depths(self, depth: torch.Tensor, feats: Features):
         """Per-keypoint metric depth (K,): the depth image at the
@@ -491,9 +515,11 @@ class KeyframeSLAM:
             pose_cw, n_matches, n_inliers, jump, n_features = \
                 self._track_local_map(feats, pred_cw)
             ok = n_inliers >= c.min_track_inliers and jump <= c.max_pose_jump
-            self._after_pnp(frame, feats, pose_cw, ok, ok and (
+            ref = self._after_pnp(frame, feats, pose_cw, ok, ok and (
                 self._need_keyframe(n_inliers, n_matches,
                                     self.frames_since_kf + 1)))
+            if ref is not None:
+                n_matches, n_inliers = ref
         self._prev_feats = feats
         self._prev_frame = frame
         if n_features is None:
@@ -530,10 +556,23 @@ class KeyframeSLAM:
         self._cur_kp_color = self._kp_colors(img, feats)
 
     def _after_pnp(self, frame: FrameData, feats: Features, pose_cw,
-                   ok: bool, need_kf: bool) -> None:
+                   ok: bool, need_kf: bool) -> Optional[tuple]:
         """track()'s control flow once PnP has run: take the pose (and a
-        keyframe when ``need_kf``), or coast as lost."""
+        keyframe when ``need_kf``); where the gates failed, track the frame
+        against the reference keyframe (:meth:`_track_reference`) and take
+        that pose, with the usual keyframe decision; else coast as lost.
+        Returns (matches, inliers) of the reference-keyframe path where it
+        gave the pose, else None."""
         c = self.cfg
+        ref = None
+        if not ok:
+            got = self._track_reference(feats)
+            if got is not None:
+                pose_cw, n_matches, n_inliers = got
+                ref = (n_matches, n_inliers)
+                ok = True
+                need_kf = self._need_keyframe(n_inliers, n_matches,
+                                              self.frames_since_kf + 1)
         if ok:
             self.velocity = se3_mul(pose_cw, self.pose_wc)
             self.pose_wc = se3_inverse(pose_cw)
@@ -541,7 +580,7 @@ class KeyframeSLAM:
             self._lost_frames = 0
             if need_kf:
                 self._insert_keyframe(frame, feats, pose_cw)
-            return
+            return ref
         # lost: coast on the motion model (no keyframe at an uncertain
         # pose); try BoW relocalization when there is a vocabulary; after
         # max_lost_frames re-anchor with a fresh keyframe
@@ -552,6 +591,7 @@ class KeyframeSLAM:
                 and self._lost_frames > c.max_lost_frames:
             self._insert_keyframe(frame, feats, se3_inverse(self.pose_wc))
             self._lost_frames = 0
+        return None
 
     def _record(self, frame: FrameData, n_features: int, n_matches: int,
                 n_inliers: int) -> None:
@@ -647,20 +687,25 @@ class KeyframeSLAM:
                 arena.point_desc[slab_ids],
                 (uniq >= 0) & arena.point_valid[slab_ids])
 
-    def _track_local_map(self, feats: Features, pose_cw_pred):
+    def _track_local_map(self, feats: Features, pose_cw_pred,
+                         generator=None, span="slam/track_fused"):
         """Slab gather -> projection under the predicted pose -> gated
-        matching -> PnP RANSAC + GN refine (:meth:`_track_pnp`), then ONE
-        packed fetch of (match count, inlier count, pose jump, feature
-        count)."""
+        matching -> PnP RANSAC + GN refine (:meth:`_track_pnp`, drawing
+        from ``generator`` where given), then ONE packed fetch of (match
+        count, inlier count, pose jump, feature count).  Span ``span``,
+        its children ``<span>/{slab,match,pnp,fetch}`` and counters
+        ``<span>/{matches,inliers}``: ``slam/track_fused`` for the motion
+        model's pass, another name for :meth:`_track_reference`'s, so that
+        the motion model's numbers count each frame once."""
         c = self.cfg
         cam = self.camera
         arena = self.arena
         tm = self.timer
-        with tm.section("slam/track_fused"):
-            with tm.section("slam/track_fused/slab"):
+        with tm.section(span):
+            with tm.section(f"{span}/slab"):
                 last_kf = self._kf_tensor()
                 slab_ids, xyz, desc, valid = self._slab(arena, last_kf)
-            with tm.section("slam/track_fused/match"):
+            with tm.section(f"{span}/match"):
                 uv_pred, proj_ok = cam.project(se3_apply(pose_cw_pred, xyz))
                 visible = valid & proj_ok
                 match = (match_hamming_gated if c.use_kernels
@@ -670,9 +715,10 @@ class KeyframeSLAM:
                           max_dist=c.match_max_dist, ratio=c.match_ratio)
                 rays = cam.unproject(
                     feats.uv[m.idx.clamp_min(0).long()])[:, :2]
-            with tm.section("slam/track_fused/pnp"):
-                T, inl, n = self._track_pnp(xyz, rays, m.valid)
-            with tm.section("slam/track_fused/fetch"):
+            with tm.section(f"{span}/pnp"):
+                T, inl, n = self._track_pnp(xyz, rays, m.valid, generator,
+                                            span)
+            with tm.section(f"{span}/fetch"):
                 # landmark tracking statistics (visible / found)
                 new_vis = arena.point_visible.index_add(
                     0, slab_ids, visible.to(torch.int32))
@@ -687,31 +733,33 @@ class KeyframeSLAM:
                                    point_found=new_fnd)
         self._last_track = (slab_ids, m, inl)
         sc = sc.tolist()
-        tm.count("slam/track_fused/matches", int(sc[0]))
-        tm.count("slam/track_fused/inliers", int(sc[1]))
+        tm.count(f"{span}/matches", int(sc[0]))
+        tm.count(f"{span}/inliers", int(sc[1]))
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
 
-    def _track_pnp(self, xyz, rays, valid):
+    def _track_pnp(self, xyz, rays, valid, generator=None,
+                   span="slam/track_fused"):
         """A tracked frame's PnP RANSAC + GN refine.  On the card with
         ``batch_graphs``: the frame's (B, 4) uniforms drawn here, then a
         replay of the process's CUDA graph of ``find_pnp_ransac`` for what
         the input shows (device, N, dtype, B, threshold, max depth, GN
         iterations), captured on first use; copy-in, replay and the
         outputs' copies out hold one lock.  Elsewhere :meth:`_find_pnp`,
-        eagerly.  The draw takes the generator (or the ``uniforms`` hook)
-        as the eager call inside ``ransac_sample_indices`` does, so both
-        give the same bits.  Counters: ``slam/track_fused/pnp_graph`` (1 a
-        replay, 0 an eager call) and ``slam/track_fused/capture_s`` (each
-        capture's ``BatchGraph.capture_s``)."""
+        eagerly.  The draw comes from :meth:`_draw` as the eager call
+        inside ``ransac_sample_indices`` takes it, so both give the same
+        bits.  Counters: ``<span>/pnp_graph`` (1 a replay, 0 an eager
+        call) and ``<span>/capture_s`` (each capture's
+        ``BatchGraph.capture_s``), ``span`` as :meth:`_track_local_map`'s."""
         tm = self.timer
         if self.device.type != "cuda" or not self.batch_graphs:
-            tm.count("slam/track_fused/pnp_graph", 0)
-            return self._find_pnp(xyz, rays, valid)
+            tm.count(f"{span}/pnp_graph", 0)
+            return self._find_pnp(xyz, rays, valid, generator=generator)
         thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
-        if self._uniforms is not None:
-            u = self._uniforms().to(self.device)
+        draw = self._draw(generator)
+        if "uniforms" in draw:
+            u = draw["uniforms"].to(self.device)
         else:
-            u = torch.rand((RANSAC_B, 4), generator=self._gen,
+            u = torch.rand((RANSAC_B, 4), generator=draw["generator"],
                            device=self.device)
         inputs = dict(xyz=xyz, rays=rays, valid=valid, uniforms=u)
         # (device, N, dtype) from the input, then _pnp_body's parameters:
@@ -723,9 +771,9 @@ class KeyframeSLAM:
             if graph is None:
                 graph = _PNP_GRAPHS[key] = BatchGraph(
                     functools.partial(_pnp_body, *key[3:]), inputs)
-                tm.count("slam/track_fused/capture_s", graph.capture_s)
+                tm.count(f"{span}/capture_s", graph.capture_s)
             out = _clone(graph(inputs))
-        tm.count("slam/track_fused/pnp_graph", 1)
+        tm.count(f"{span}/pnp_graph", 1)
         return out
 
     # ------------------------------------------------------------------
@@ -919,7 +967,9 @@ class KeyframeSLAM:
         control flow after PnP, where an accepted pose needs a keyframe."""
         self._set_keypoint_samples(frame, img, res.feats)
         self._last_track = (slab_ids, res.matches, res.inliers)
-        self._after_pnp(frame, res.feats, res.T, ok, ok)
+        ref = self._after_pnp(frame, res.feats, res.T, ok, ok)
+        if ref is not None:
+            n_matches, n_inliers = ref
         self._prev_feats = res.feats
         self._prev_frame = frame
         self._record(frame, n_feats, n_matches, n_inliers)
@@ -1126,6 +1176,87 @@ class KeyframeSLAM:
                     if n_valid < 0.7 * n_alloc:
                         self.arena, _ = compact_arena(self.arena)
 
+    def _solve_against(self, kf, feats: Features, max_depth, B=RELOC_B,
+                       generator=None):
+        """The frame against the map points of keyframe ``kf`` (an int or
+        a 0-d device tensor) and its covisible neighbours, with no pose
+        prior: the covisibility slab, Hamming matching with the ratio test
+        and no gate (B3 with ``use_kernels``), P3P RANSAC with ``B``
+        hypotheses (drawn from ``generator`` where given) and GN refine,
+        inliers within ``max_depth``.  Returns (T_cw, inlier count), on
+        the device."""
+        c = self.cfg
+        arena = self.arena
+        pids = covis_union_ids(
+            arena, torch.as_tensor(kf, dtype=torch.int32,
+                                   device=self.device),
+            c.local_map_size, window=4, min_common=5)
+        pslot = pids.clamp_min(0).long()
+        ok = (pids >= 0) & arena.point_valid[pslot]
+        match = match_hamming if c.use_kernels else match_descriptors
+        m = match(arena.point_desc[pslot], ok, feats.desc, feats.valid,
+                  ratio=0.9)
+        rays = self.camera.unproject(
+            feats.uv[m.idx.clamp_min(0).long()])[:, :2]
+        T, _, n = self._find_pnp(arena.point_xyz[pslot], rays, m.valid,
+                                 B=B, max_depth=max_depth,
+                                 generator=generator)
+        return T, n
+
+    def _map_gates(self):
+        """(lo, hi, margin, max_depth) for a pose solved with no prior:
+        the camera lies within ``margin`` of the mapped region
+        (:func:`map_volume`, one host read), and PnP inliers count within
+        a scene-scale depth (the gates of LoopCloser.verify: without them
+        a lower inlier bar would admit degenerate RANSAC poses)."""
+        lo, hi, margin = map_volume(self.arena, self._n_frames_host)
+        return lo, hi, margin, 4.0 * float((hi - lo).max()) + 10.0
+
+    def _track_reference(self, feats: Features) -> Optional[tuple]:
+        """Track a frame that failed the motion model's gates against the
+        reference keyframe (``last_kf_id``), with no pose prior: the pose
+        solved against that keyframe's neighbourhood
+        (:meth:`_solve_against`, ``REF_B`` hypotheses from the path's own
+        generator, the depth gate of :meth:`_map_gates`), then the frame
+        tracked against the local map under that pose
+        (:meth:`_track_local_map` as span ``slam/track_ref/local_map``,
+        drawing from the same generator).  The map's volume is read before
+        the path launches anything and the pose's centre after its one
+        fetch: neither waits on the card.
+
+        Accepted at twice ``min_track_inliers`` inliers of the second step
+        (``_need_keyframe``'s line of weak tracking: a pose that nothing
+        predicted gets a stricter bar, as ORB-SLAM2 asks 50 inliers for 30
+        after a relocalization), its pose within ``max_pose_jump`` of the
+        first's, and the camera inside the mapped volume.  Returns (T_cw,
+        matches, inliers) of the second step; else None, with the map's
+        visit counts and the kept matches as they were.  Span
+        ``slam/track_ref``; counter ``slam/track_ref/accepted``, one
+        observation a call (1 accepted, 0 not)."""
+        c = self.cfg
+        if self.last_kf_id < 0:
+            return None
+        tm = self.timer
+        # what the second step writes is kept only where it is accepted
+        arena, last_track = self.arena, self._last_track
+        with tm.section("slam/track_ref"):
+            lo, hi, margin, max_depth = self._map_gates()
+            T_ref, _ = self._solve_against(
+                self.last_kf_id, feats, max_depth, B=REF_B,
+                generator=self._ref_gen)
+            T, n_match, n_inl, jump, _ = self._track_local_map(
+                feats, T_ref, generator=self._ref_gen,
+                span="slam/track_ref/local_map")
+            center = se3_inverse(T)[:3].cpu().numpy()
+        accepted = (n_inl >= 2 * c.min_track_inliers
+                    and jump <= c.max_pose_jump
+                    and inside_volume(center, lo, hi, margin))
+        tm.count("slam/track_ref/accepted", int(accepted))
+        if not accepted:
+            self.arena, self._last_track = arena, last_track
+            return None
+        return T, n_match, n_inl
+
     def _relocalize(self, feats: Features) -> bool:
         """BoW relocalization after tracking loss: query the keyframe
         database with the frame's BoW vector, PnP-verify the frame
@@ -1145,27 +1276,10 @@ class KeyframeSLAM:
                            if scores[x] < lc.min_score), len(good))]
         if not good:
             return False
-        # a relocalized camera lies inside the mapped region, and PnP
-        # inliers count within a scene-scale depth (the gates of
-        # LoopCloser.verify: without them a lower inlier bar would admit
-        # degenerate RANSAC poses)
-        lo, hi, margin = map_volume(self.arena, self._n_frames_host)
-        max_depth = 4.0 * float((hi - lo).max()) + 10.0
-        arena = self.arena
+        lo, hi, margin, max_depth = self._map_gates()
         packed = []
         for cand in good:
-            pids = covis_union_ids(
-                arena, torch.full((), cand, dtype=torch.int32,
-                                  device=self.device),
-                c.local_map_size, window=4, min_common=5)
-            pslot = pids.clamp_min(0).long()
-            ok = (pids >= 0) & arena.point_valid[pslot]
-            m = match_descriptors(arena.point_desc[pslot], ok, feats.desc,
-                                  feats.valid, ratio=0.9)
-            rays = self.camera.unproject(
-                feats.uv[m.idx.clamp_min(0).long()])[:, :2]
-            T, _, n = self._find_pnp(arena.point_xyz[pslot], rays, m.valid,
-                                     B=RELOC_B, max_depth=max_depth)
+            T, n = self._solve_against(cand, feats, max_depth)
             packed.append(torch.cat([T, se3_inverse(T)[:3],
                                      n.to(torch.float32)[None]]))
         packed = torch.stack(packed).cpu().numpy()       # one fetch

@@ -44,9 +44,13 @@ class StereoSLAM(KeyframeSLAM):
     def _stereo_depths(self, frame: FrameData, feats: Features
                        ) -> torch.Tensor:
         """(K,) depth of the left keypoints from the right image: 0 where
-        no match passes the gate."""
+        no match passes the gate.  Counters ``slam/stereo/keypoints``
+        (valid left keypoints) and ``slam/stereo/depths`` (those matched
+        under the gate, so given a depth), one observation a frame each,
+        summed on the device."""
         c = self.cfg
-        with self.timer.section("slam/stereo"):
+        tm = self.timer
+        with tm.section("slam/stereo"):
             right = torch.as_tensor(frame.image_right, device=self.device)
             feats_r = extract_features(right, max_kps=c.max_kps,
                                        threshold=c.fast_threshold,
@@ -58,6 +62,8 @@ class StereoSLAM(KeyframeSLAM):
                                  frame.stereo_baseline)
             depth = torch.where(torch.isfinite(depth), depth,
                                 depth.new_zeros(()))
+        tm.count("slam/stereo/keypoints", feats.valid.sum())
+        tm.count("slam/stereo/depths", ok.sum())
         return depth
 
 
