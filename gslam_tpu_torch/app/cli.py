@@ -86,10 +86,11 @@ def _build_slam(dataset, s: Svar, device: torch.device):
     if load_map and hasattr(slam, "load_map"):
         slam.load_map(load_map)
         log.info("loaded map arena from %s", load_map)
-    # -debug.nojit true: the K-frame body and track's PnP eagerly, not as
-    # CUDA graphs
+    # -debug.nojit true: the K-frame body and track's extraction and PnP
+    # eagerly, not as CUDA graphs
     if s.arg("debug.nojit", False,
-             "run track_batch's body and track's PnP eagerly") \
+             "run track_batch's body and track's extraction and PnP "
+             "eagerly") \
             and hasattr(slam, "track_batch"):
         slam.batch_graphs = False
     return slam

@@ -19,9 +19,10 @@ frame per ``track`` call or K per ``track_batch`` dispatch:
             accepts the frames before the first that trips a predicate
             and hands that frame's frozen state to the keyframe or
             relocalization path.  On the card the K-frame body is one
-            captured CUDA graph (:class:`BatchGraph`), and so is a tracked
-            frame's PnP RANSAC + GN refine (one graph per process and
-            shape, :meth:`KeyframeSLAM._track_pnp`)
+            captured CUDA graph (:class:`BatchGraph`), and so are a
+            tracked frame's extraction and its PnP RANSAC + GN refine (one
+            graph per process and shape, :meth:`KeyframeSLAM._extract`,
+            :meth:`KeyframeSLAM._track_pnp`)
   IMU:      a frame's samples are preintegrated (Forster factor) and
             composed since the last keyframe; the gyro delta replaces the
             rotation of the constant-velocity prediction; a keyframe emits
@@ -240,8 +241,11 @@ class BatchGraph:
     """A body over a dict of static input tensors captured as one CUDA
     graph: the counterpart of one jitted JAX executable.  It holds the
     K-frame body of ``track_batch`` (one ``lax.scan`` dispatch in the JAX
-    package), one per system and batch shape, and a tracked frame's PnP
-    RANSAC + GN refine, one per process and shape (``_PNP_GRAPHS``).
+    package), one per system and batch shape; a tracked frame's PnP
+    RANSAC + GN refine, one per process and shape (``_PNP_GRAPHS``); and
+    a tracked frame's feature extraction (and a stereo frame's right
+    image's), one per process, image shape and extraction parameters
+    (``_EXTRACT_GRAPHS``).
 
     The first inputs are cloned into static buffers, the body runs once
     on a side stream (warm-up: libraries, caches and the kernels' first
@@ -256,7 +260,8 @@ class BatchGraph:
     The kernel wrappers count launches when Python calls them, so a
     replay moves no counter: ``captured`` holds the launches one replay
     makes (counted during the capture, which launches nothing on the
-    card) and ``replays`` the replays so far.  ``capture_s``, the host
+    card; the warm-up launches them once and counts them too) and
+    ``replays`` the replays so far.  ``capture_s``, the host
     seconds of the capture and instantiation, is what the timer counter
     ``slam/track_batch/capture_s`` adds up; ``pool_bytes`` is the graph's
     memory pool."""
@@ -305,6 +310,40 @@ def _pnp_body(B: int, threshold: float, max_depth: float, refine_iters: int,
 # graph), and the lock around their shared buffers
 _PNP_GRAPHS: Dict[tuple, BatchGraph] = {}
 _PNP_LOCK = threading.Lock()
+
+
+def _extract_body(max_kps: int, threshold: float, use_kernels: bool,
+                  n_levels: int, scale: float, x: Dict[str, torch.Tensor]
+                  ) -> Features:
+    """One image's features, ``x["img"]``: :func:`extract_features`, or
+    :func:`extract_features_pyramid` over ``n_levels`` > 1 levels."""
+    if n_levels > 1:
+        return extract_features_pyramid(
+            x["img"], max_kps=max_kps, threshold=threshold,
+            n_levels=n_levels, scale=scale, use_kernels=use_kernels)
+    return extract_features(x["img"], max_kps=max_kps, threshold=threshold,
+                            use_kernels=use_kernels)
+
+
+# tracked frames' extraction graphs, one per process and key, shared as
+# _PNP_GRAPHS are, and the lock around their shared buffers
+_EXTRACT_GRAPHS: Dict[tuple, BatchGraph] = {}
+_EXTRACT_LOCK = threading.Lock()
+
+
+def _replay(graphs: Dict[tuple, BatchGraph], lock: threading.Lock,
+            key: tuple, body: Callable, inputs: Dict[str, torch.Tensor],
+            timer: Timer, capture_counter: str):
+    """``body`` over ``inputs`` by a replay of ``graphs[key]``, captured
+    on first use (its ``capture_s`` counted under ``capture_counter``);
+    copy-in, replay and the copies of the outputs hold ``lock``, so the
+    result never aliases the graph's buffers."""
+    with lock:
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = BatchGraph(body, inputs)
+            timer.count(capture_counter, graph.capture_s)
+        return _clone(graph(inputs))
 
 
 class KeyframeSLAM:
@@ -379,9 +418,9 @@ class KeyframeSLAM:
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
         self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
-        # False: the K-frame body and a tracked frame's PnP run eagerly on
-        # the card too (the CLI's -debug.nojit), the counterpart of
-        # jax_disable_jit
+        # False: the K-frame body and a tracked frame's extraction and PnP
+        # run eagerly on the card too (the CLI's -debug.nojit), the
+        # counterpart of jax_disable_jit
         self.batch_graphs = True
         self.batch_accepted: List[int] = []  # frames each dispatch took
         # VI state: the factor composed since the last keyframe, the
@@ -487,15 +526,7 @@ class KeyframeSLAM:
         self.timer.frame = frame.id
         img = torch.as_tensor(frame.image, device=self.device)
         with self.timer.section("slam/extract"):
-            if c.n_levels > 1:
-                feats = extract_features_pyramid(
-                    img, max_kps=c.max_kps, threshold=c.fast_threshold,
-                    n_levels=c.n_levels, scale=c.pyramid_scale,
-                    use_kernels=c.use_kernels)
-            else:
-                feats = extract_features(img, max_kps=c.max_kps,
-                                         threshold=c.fast_threshold,
-                                         use_kernels=c.use_kernels)
+            feats = self._extract(img, "slam/extract")
         self._set_keypoint_samples(frame, img, feats)
         imu_delta = self._preintegrate(frame)
 
@@ -737,6 +768,37 @@ class KeyframeSLAM:
         tm.count(f"{span}/inliers", int(sc[1]))
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
 
+    def _extract(self, img: torch.Tensor, span: str,
+                 n_levels: Optional[int] = None) -> Features:
+        """``img``'s features with ``cfg``'s extraction parameters
+        (``n_levels`` in place of ``cfg.n_levels`` where given).  On the
+        card with ``batch_graphs``: a replay of the process's CUDA graph
+        of :func:`_extract_body` for what the input shows and the
+        parameters the body reads (device, shape, dtype, ``max_kps``,
+        threshold, ``use_kernels``, levels, scale), captured on first use;
+        copy-in, replay and the copies of every ``Features`` field hold
+        one lock, so features kept across calls (a stereo frame's left
+        image while its right replays, ``_prev_feats``, a keyframe's)
+        never alias the graph's buffers.  Elsewhere the same body,
+        eagerly.  Counters: ``<span>/graph`` (1 a replay, 0 an eager
+        call) and ``<span>/capture_s`` (each capture's
+        ``BatchGraph.capture_s``)."""
+        c = self.cfg
+        params = (c.max_kps, c.fast_threshold, c.use_kernels,
+                  c.n_levels if n_levels is None else n_levels,
+                  c.pyramid_scale)
+        inputs = dict(img=img)
+        tm = self.timer
+        if self.device.type != "cuda" or not self.batch_graphs:
+            tm.count(f"{span}/graph", 0)
+            return _extract_body(*params, inputs)
+        out = _replay(_EXTRACT_GRAPHS, _EXTRACT_LOCK,
+                      (img.device, *img.shape, img.dtype, *params),
+                      functools.partial(_extract_body, *params), inputs, tm,
+                      f"{span}/capture_s")
+        tm.count(f"{span}/graph", 1)
+        return out
+
     def _track_pnp(self, xyz, rays, valid, generator=None,
                    span="slam/track_fused"):
         """A tracked frame's PnP RANSAC + GN refine.  On the card with
@@ -766,13 +828,9 @@ class KeyframeSLAM:
         # B, threshold, max_depth, refine_iters (find_pnp_ransac's default)
         key = (xyz.device, xyz.shape[0], xyz.dtype,
                RANSAC_B, thr, float("inf"), 5)
-        with _PNP_LOCK:
-            graph = _PNP_GRAPHS.get(key)
-            if graph is None:
-                graph = _PNP_GRAPHS[key] = BatchGraph(
-                    functools.partial(_pnp_body, *key[3:]), inputs)
-                tm.count(f"{span}/capture_s", graph.capture_s)
-            out = _clone(graph(inputs))
+        out = _replay(_PNP_GRAPHS, _PNP_LOCK, key,
+                      functools.partial(_pnp_body, *key[3:]), inputs, tm,
+                      f"{span}/capture_s")
         tm.count(f"{span}/pnp_graph", 1)
         return out
 

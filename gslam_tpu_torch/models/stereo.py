@@ -23,7 +23,7 @@ from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.datasets.base import FrameData
 from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
 from gslam_tpu_torch.models.loop_closure import LoopCloser
-from gslam_tpu_torch.ops.frontend import Features, extract_features
+from gslam_tpu_torch.ops.frontend import Features
 from gslam_tpu_torch.ops.stereo import match_stereo, stereo_depth
 
 
@@ -47,14 +47,14 @@ class StereoSLAM(KeyframeSLAM):
         no match passes the gate.  Counters ``slam/stereo/keypoints``
         (valid left keypoints) and ``slam/stereo/depths`` (those matched
         under the gate, so given a depth), one observation a frame each,
-        summed on the device."""
-        c = self.cfg
+        summed on the device.  The right image is extracted at one level,
+        as the JAX package's, through :meth:`KeyframeSLAM._extract` (the
+        left image's graph where the left is single-scale too; counter
+        ``slam/stereo/graph``)."""
         tm = self.timer
         with tm.section("slam/stereo"):
             right = torch.as_tensor(frame.image_right, device=self.device)
-            feats_r = extract_features(right, max_kps=c.max_kps,
-                                       threshold=c.fast_threshold,
-                                       use_kernels=c.use_kernels)
+            feats_r = self._extract(right, "slam/stereo", n_levels=1)
             disp, ok = match_stereo(
                 feats.desc, feats.valid, feats.uv, feats_r.desc,
                 feats_r.valid, feats_r.uv, max_disparity=self.max_disparity)

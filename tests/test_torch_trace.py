@@ -15,7 +15,7 @@
 * Counters: ``stats()`` reports them with the ``count`` / ``total`` keys
   that ``slambench.run.merge_sections`` sums; a tensor value is summed
   where it lies and read to the host only in ``stats()``.
-* The benchmark's ten readers of these spans and counters on a
+* The benchmark's eleven readers of these spans and counters on a
   hand-built ``slambench.run.Run``, and on one without them.
 * ``play -profile DIR -cpu true`` writes a trace that holds the
   program's spans.
@@ -336,6 +336,8 @@ def hand_run():
         "slam/local_ba/lm_accepted": s(10, 42),
         "slam/track_batch/accepted": s(12, 60),
         "slam/track_batch/capture_s": s(3, 0.6),
+        "slam/extract/graph": s(100, 95),
+        "slam/stereo/graph": s(100, 100),
     }
     run.traced_sections = {
         "slam/track_fused/slab": s(30, 0.6),
@@ -350,6 +352,8 @@ def hand_run():
         "slam/local_ba/lm_accepted": s(5, 30),
         "slam/track_batch/accepted": s(4, 32),
         "slam/track_batch/capture_s": s(1, 0.3),
+        "slam/extract/graph": s(40, 40),
+        "slam/stereo/graph": s(40, 40),
     }
     return run
 
@@ -366,6 +370,8 @@ READ = {
     "lm_accept_pct": 100.0 * 12 / 30,
     "batch_accept_pct": 100.0 * 28 / (8 * 8),
     "capture_ms": 0.3 / 60 * 1e3,
+    # both images' counters outside the trace: 55 + 60 replays of 120
+    "extract_graph_pct": 100.0 * (55 + 60) / 120,
 }
 
 
