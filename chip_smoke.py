@@ -249,14 +249,15 @@ from gslam_tpu_torch.graft_entry import FLEET_ALIGN, FLEET_SEEDS
 from gslam_tpu_torch.models import keyframe_slam
 from gslam_tpu_torch.models.direct import DirectConfig, DirectOdometry
 from gslam_tpu_torch.models.graft import example_inputs, track_forward
-from gslam_tpu_torch.models.keyframe_slam import (
-    BatchGraph, KeyframeSLAM, SLAMConfig, tensor_leaves,
-)
+from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
 from gslam_tpu_torch.models.odometry import FrameToFrameOdometry
 from gslam_tpu_torch.models.sfm import GlobalSfM
 from gslam_tpu_torch.ops import frontend, vocab
-from gslam_tpu_torch.ops.cuda import brief, build, fastnms, matcher, schur
+from gslam_tpu_torch.ops.cuda import (
+    brief, build, fastnms, launch_counts, matcher, schur,
+)
 from gslam_tpu_torch.ops.cuda import vocab as vocab_k
+from gslam_tpu_torch.ops.cuda.graphs import CapturedGraph, tensor_leaves
 from gslam_tpu_torch.ops.matching import (
     gate_squared, hamming_top2, hamming_top2_gated, match_descriptors,
 )
@@ -563,14 +564,6 @@ KERNELS = {
     "bow_descent": dict(source="gslam_tpu_torch/csrc/vocab.cu",
                         replaces="gslam_tpu/ops/pallas/vocab.py:69"),
 }
-# (wrapper module, its launch counter) per kernel
-COUNTERS = {"fast_nms": (fastnms, "launches"), "brief": (brief, "launches"),
-            "matcher": (matcher, "launches"),
-            "gated_matcher": (matcher, "gated_launches"),
-            "schur": (schur, "schur_launches"),
-            "ba_cost": (schur, "cost_launches"),
-            "schur_partials": (schur, "partials_launches"),
-            "bow_descent": (vocab_k, "launches")}
 TRACK_PATH = ("fast_nms", "brief", "matcher")
 SLAM_PATH = ("fast_nms", "brief", "gated_matcher", "schur", "ba_cost")
 LOOP_PATH = SLAM_PATH + ("bow_descent",)
@@ -643,56 +636,27 @@ def bound_ms(n_bytes: float, n_ops: float, n_words: float = 0.0,
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-# each process-wide graph's replays at the last reset_counts (a graph
-# captured since is absent)
-_REPLAYS_AT_RESET: dict = {}
-
-
-def _graphs(systems=()):
-    """The process's PnP and extraction graphs and ``systems``' own
-    (``track_batch``'s) graphs."""
-    return [*keyframe_slam._PNP_GRAPHS.values(),
-            *keyframe_slam._EXTRACT_GRAPHS.values(),
-            *(g for s in systems for g in s._graphs.values())]
+# the launch counters at the last reset_counts
+_AT_RESET: dict = {}
 
 
 def reset_counts() -> None:
-    for mod, attr in COUNTERS.values():
-        setattr(mod, attr, 0)
-    _REPLAYS_AT_RESET.clear()
-    _REPLAYS_AT_RESET.update((g, g.replays) for g in _graphs())
+    _AT_RESET.update(launch_counts())
 
 
-def counts(*systems):
-    """The kernels' launches on the card since :func:`reset_counts`.  A
-    wrapper counts when Python calls it, so each :class:`BatchGraph`
-    (the process's PnP and extraction graphs and ``systems``' batch
-    graphs) counted its launches once in its warm-up, which launches
-    them, once more in its capture, which launches nothing, and not at
-    all in its replays.  Each graph therefore adds its captured launches
-    times its replays since the reset, less one replay where it was
-    captured since (its capture's count stands for it): a graph captured
-    since the reset reads its launches times (replays + 1), the warm-up
-    included (:func:`warmup_launches`)."""
-    out = {name: getattr(mod, attr) for name, (mod, attr)
-           in COUNTERS.items()}
-    for graph in _graphs(systems):
-        since = graph.replays - _REPLAYS_AT_RESET.get(graph, 1)
-        for name, n in graph.captured.items():
-            out[name] += n * since
-    return out
+def counts():
+    """The kernels' launches on the card since :func:`reset_counts`: a
+    graph's warm-up and replays count, its capture does not."""
+    now = launch_counts()
+    return {k: n - _AT_RESET[k] for k, n in now.items()}
 
 
-def warmup_launches(*systems):
-    """The launches of the warm-ups of the graphs captured since
-    :func:`reset_counts` (one eager run of each body before its capture,
-    see :func:`counts`)."""
-    out = dict.fromkeys(COUNTERS, 0)
-    for graph in _graphs(systems):
-        if graph not in _REPLAYS_AT_RESET:
-            for name, n in graph.captured.items():
-                out[name] += n
-    return out
+def extract_captures(slam) -> int:
+    """The extraction graphs ``slam`` captured: the warm-up of each ran
+    its body once on the card."""
+    st = slam.timer.stats()
+    return sum(st.get(f"{span}/capture", {}).get("count", 0)
+               for span in ("slam/extract", "slam/stereo"))
 
 
 # ---------------------------------------------------------------------------
@@ -1834,7 +1798,7 @@ def phase_slam_timing(camera, frames, first_ate):
                 profile=prof)
 
 
-def graph_nodes(graph: BatchGraph) -> int:
+def graph_nodes(graph: CapturedGraph) -> int:
     """Node count of a batch graph's captured cudaGraph_t (the driver's
     cuGraphGetNodes; the CUDA runtime's graph is the driver's)."""
     lib = ctypes.CDLL(ctypes.util.find_library("cuda") or "libcuda.so.1")
@@ -1862,7 +1826,7 @@ def run_batched(camera, frames, seed=0, cfg=None):
     slam.track_batch(frames)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return slam, secs, sum(g.capture_s for g in slam._graphs.values())
+    return slam, secs, sum(g.capture_s for g in slam.graph_cache.values())
 
 
 def phase_batched(camera, frames):
@@ -1871,9 +1835,9 @@ def phase_batched(camera, frames):
     that repeats the ATE bit for bit."""
     reset_counts()
     slam, secs, cap_s = run_batched(camera, frames)
-    launched = counts(slam)
+    launched = counts()
     n = len(frames)
-    graphs = list(slam._graphs.values())
+    graphs = list(slam.graph_cache.values())
     log(f"track_batch path launches over {n} frames: {launched} ({secs:.2f}"
         f" s, first run, {cap_s:.3f} s of it capturing)")
     missing = [k for k in SLAM_PATH if launched[k] < 1]
@@ -1946,7 +1910,7 @@ def phase_graph_vs_eager(camera, frames, cfg=None, at=BATCH_EAGER_AT):
     eager = slam._batch_body(x)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    graph = BatchGraph(slam._batch_body, x)
+    graph = CapturedGraph(slam._batch_body, x)
     replay_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -2193,11 +2157,10 @@ def phase_pyramid(camera, frames):
     levels = PYRAMID_CFG["n_levels"]
     # a frame's extraction, plus the warm-up of its graph where this run
     # captured it
-    warm = warmup_launches()
-    if launched["fast_nms"] != levels * n + warm["fast_nms"] \
-            or launched["brief"] != levels * n + warm["brief"]:
+    want = levels * (n + extract_captures(slam))
+    if launched["fast_nms"] != want or launched["brief"] != want:
         raise AssertionError(f"B1 / B2 not {levels} launches a frame: "
-                             f"{launched}, warm-ups {warm}")
+                             f"{launched}, want {want} with the warm-ups")
     pos = slam.positions()
     if not np.isfinite(pos).all() or pos.shape != (n, 3):
         raise AssertionError("pyramid trajectory not finite or of the wrong "
@@ -2497,7 +2460,7 @@ def phase_distorted(camera, frames):
         f"{ate2!r} m")
     reset_counts()
     bslam, bsecs, cap_s = run_batched(camera, frames, cfg=DISTORTED_BATCH_CFG)
-    blaunched = counts(bslam)
+    blaunched = counts()
     bm = slam_metrics(bslam, frames)
     btracked, bn_kf = tracked_frames(bslam), bslam._n_frames_host
     log(f"distorted track_batch launches over {n} frames: {blaunched} "
@@ -3495,11 +3458,10 @@ def phase_stereo(rec):
                              f"{missing}")
     # two images a frame, plus the warm-up of the graph where this run
     # captured it
-    warm = warmup_launches()
-    if launched["fast_nms"] != 2 * n + warm["fast_nms"] \
-            or launched["brief"] != 2 * n + warm["brief"]:
+    want = 2 * n + extract_captures(slam)
+    if launched["fast_nms"] != want or launched["brief"] != want:
         raise AssertionError(f"stereo: B1 / B2 launches {launched}, want "
-                             f"{2 * n} each plus the warm-ups {warm}")
+                             f"{want} each with the warm-ups")
     if not np.isfinite(slam.positions()).all() or tracked < 0.9 * n \
             or points <= 50:
         raise AssertionError(f"stereo: {tracked} of {n} tracked, {points} "

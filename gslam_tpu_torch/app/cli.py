@@ -26,8 +26,8 @@ clock.  ``-debug true`` fails at the first non-finite
 value in what a frame's step returns or in the map's keyframe poses
 after it, naming the frame (the intended NaN of a masked singular solve
 inside a step is not an output); ``-debug.nojit true`` runs
-``track_batch``'s K-frame body and ``track``'s PnP RANSAC + GN refine
-eagerly instead of as their CUDA graphs.
+``track_batch``'s K-frame body and ``track``'s extraction and PnP
+RANSAC + GN refine eagerly instead of as their CUDA graphs.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def _build_slam(dataset, s: Svar, device: torch.device):
              "run track_batch's body and track's extraction and PnP "
              "eagerly") \
             and hasattr(slam, "track_batch"):
-        slam.batch_graphs = False
+        slam.use_graphs = False
     return slam
 
 

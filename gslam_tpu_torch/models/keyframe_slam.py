@@ -19,10 +19,11 @@ frame per ``track`` call or K per ``track_batch`` dispatch:
             accepts the frames before the first that trips a predicate
             and hands that frame's frozen state to the keyframe or
             relocalization path.  On the card the K-frame body is one
-            captured CUDA graph (:class:`BatchGraph`), and so are a
-            tracked frame's extraction and its PnP RANSAC + GN refine (one
-            graph per process and shape, :meth:`KeyframeSLAM._extract`,
-            :meth:`KeyframeSLAM._track_pnp`)
+            captured CUDA graph (one per system and batch shape), and so
+            are a tracked frame's extraction and its PnP RANSAC + GN
+            refine (one graph per process and shape,
+            :meth:`KeyframeSLAM._extract`, :meth:`KeyframeSLAM._track_pnp`;
+            :func:`gslam_tpu_torch.ops.cuda.graphs.run`)
   IMU:      a frame's samples are preintegrated (Forster factor) and
             composed since the last keyframe; the gyro delta replaces the
             rotation of the constant-velocity prediction; a keyframe emits
@@ -61,8 +62,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
-import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -93,7 +92,8 @@ from gslam_tpu_torch.map.arena import (
 from gslam_tpu_torch.models.loop_closure import (
     LoopCloser, inside_volume, map_volume,
 )
-from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
+from gslam_tpu_torch.ops.cuda import graphs
+from gslam_tpu_torch.ops.cuda.graphs import rebuild
 from gslam_tpu_torch.ops.cuda.matcher import (
     match_hamming, match_hamming_gated,
 )
@@ -204,112 +204,20 @@ class BatchResult(NamedTuple):
     T: torch.Tensor
 
 
-def tensor_leaves(x) -> List[torch.Tensor]:
-    """The tensors of a nest of named tuples, in order."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    return [t for v in x for t in tensor_leaves(v)]
-
-
-def _rebuild(like, values):
-    """A tuple or named tuple of ``like``'s type holding ``values``."""
-    values = list(values)
-    return type(like)(*values) if hasattr(like, "_fields") else tuple(values)
-
-
-def _clone(x):
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    return _rebuild(x, (_clone(v) for v in x))
-
-
 def _where(cond: torch.Tensor, a, b):
     """``torch.where(cond, a, b)`` over two nests of tuples."""
     if isinstance(a, torch.Tensor):
         return torch.where(cond, a, b)
-    return _rebuild(a, (_where(cond, u, v) for u, v in zip(a, b)))
-
-
-def body_launches() -> Dict[str, int]:
-    """The launch counters of the kernels in the K-frame body: B1, B2
-    and B4."""
-    return {"fast_nms": fastnms.launches, "brief": brief.launches,
-            "gated_matcher": matcher.gated_launches}
-
-
-class BatchGraph:
-    """A body over a dict of static input tensors captured as one CUDA
-    graph: the counterpart of one jitted JAX executable.  It holds the
-    K-frame body of ``track_batch`` (one ``lax.scan`` dispatch in the JAX
-    package), one per system and batch shape; a tracked frame's PnP
-    RANSAC + GN refine, one per process and shape (``_PNP_GRAPHS``); and
-    a tracked frame's feature extraction (and a stereo frame's right
-    image's), one per process, image shape and extraction parameters
-    (``_EXTRACT_GRAPHS``).
-
-    The first inputs are cloned into static buffers, the body runs once
-    on a side stream (warm-up: libraries, caches and the kernels' first
-    launches), then once under ``torch.cuda.graph``.  A call copies its
-    inputs into the static buffers and replays; the outputs are the
-    graph's own buffers, overwritten by the next replay.  Nothing falls
-    back to the eager body: a failed capture or replay raises.  The
-    capture restricts only its own thread (``thread_local``), so that
-    another thread of the process (the app pipeline's consumers) may use
-    the card meanwhile.
-
-    The kernel wrappers count launches when Python calls them, so a
-    replay moves no counter: ``captured`` holds the launches one replay
-    makes (counted during the capture, which launches nothing on the
-    card; the warm-up launches them once and counts them too) and
-    ``replays`` the replays so far.  ``capture_s``, the host
-    seconds of the capture and instantiation, is what the timer counter
-    ``slam/track_batch/capture_s`` adds up; ``pool_bytes`` is the graph's
-    memory pool."""
-
-    def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor]):
-        self.static = {k: v.clone() for k, v in inputs.items()}
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            body(self.static)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        before = body_launches()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = body(self.static)
-        self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
-        after = body_launches()
-        self.captured = {k: after[k] - before[k] for k in after}
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.replays = 0
-
-    def __call__(self, inputs: Dict[str, torch.Tensor]):
-        for k, v in inputs.items():
-            self.static[k].copy_(v)
-        self.graph.replay()
-        self.replays += 1
-        return self.out
+    return rebuild(a, (_where(cond, u, v) for u, v in zip(a, b)))
 
 
 def _pnp_body(B: int, threshold: float, max_depth: float, refine_iters: int,
               x: Dict[str, torch.Tensor]):
-    """``find_pnp_ransac`` over the static inputs of a tracked frame's
-    PnP graph: slab points, rays, match mask and the frame's uniforms."""
+    """``find_pnp_ransac`` over a tracked frame's slab points, rays, match
+    mask and uniforms."""
     return find_pnp_ransac(x["xyz"], x["rays"], x["valid"],
                            threshold=threshold, B=B, refine_iters=refine_iters,
                            max_depth=max_depth, uniforms=x["uniforms"])
-
-
-# tracked frames' PnP graphs, one per process and key (the counterpart of
-# the JAX package's jit cache: every system of the process replays one
-# graph), and the lock around their shared buffers
-_PNP_GRAPHS: Dict[tuple, BatchGraph] = {}
-_PNP_LOCK = threading.Lock()
 
 
 def _extract_body(max_kps: int, threshold: float, use_kernels: bool,
@@ -323,27 +231,6 @@ def _extract_body(max_kps: int, threshold: float, use_kernels: bool,
             n_levels=n_levels, scale=scale, use_kernels=use_kernels)
     return extract_features(x["img"], max_kps=max_kps, threshold=threshold,
                             use_kernels=use_kernels)
-
-
-# tracked frames' extraction graphs, one per process and key, shared as
-# _PNP_GRAPHS are, and the lock around their shared buffers
-_EXTRACT_GRAPHS: Dict[tuple, BatchGraph] = {}
-_EXTRACT_LOCK = threading.Lock()
-
-
-def _replay(graphs: Dict[tuple, BatchGraph], lock: threading.Lock,
-            key: tuple, body: Callable, inputs: Dict[str, torch.Tensor],
-            timer: Timer, capture_counter: str):
-    """``body`` over ``inputs`` by a replay of ``graphs[key]``, captured
-    on first use (its ``capture_s`` counted under ``capture_counter``);
-    copy-in, replay and the copies of the outputs hold ``lock``, so the
-    result never aliases the graph's buffers."""
-    with lock:
-        graph = graphs.get(key)
-        if graph is None:
-            graph = graphs[key] = BatchGraph(body, inputs)
-            timer.count(capture_counter, graph.capture_s)
-        return _clone(graph(inputs))
 
 
 class KeyframeSLAM:
@@ -417,11 +304,13 @@ class KeyframeSLAM:
         self._last_track = None            # (slab_ids, matches, inliers)
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
-        self._graphs: Dict[tuple, BatchGraph] = {}    # per batch shape
+        # track_batch's graphs, by batch shape: its body reads this
+        # system's configuration and camera
+        self.graph_cache = graphs.GraphCache()
         # False: the K-frame body and a tracked frame's extraction and PnP
         # run eagerly on the card too (the CLI's -debug.nojit), the
         # counterpart of jax_disable_jit
-        self.batch_graphs = True
+        self.use_graphs = True
         self.batch_accepted: List[int] = []  # frames each dispatch took
         # VI state: the factor composed since the last keyframe, the
         # inter-keyframe factors (numpy) for VI BA and rotation-only
@@ -483,23 +372,29 @@ class KeyframeSLAM:
             torch.arange(self.cfg.max_kps, device=self.device)
             < self.arena.frame_kp_count[fid])
 
-    def _draw(self, generator=None) -> dict:
-        """A RANSAC draw's source, as ``find_pnp_ransac`` takes it:
-        ``generator`` where given, else the system's generator, or the
-        ``uniforms`` hook's next uniforms where there is one."""
-        if generator is not None:
-            return dict(generator=generator)
-        if self._uniforms is None:
-            return dict(generator=self._gen)
-        return dict(uniforms=self._uniforms())
+    def _draws(self, B: int, generator=None) -> torch.Tensor:
+        """A PnP RANSAC's (B, 4) uniforms: from ``generator`` where given,
+        else the ``uniforms`` hook's next ones where there is one, else
+        the system's generator.  ``find_pnp_ransac`` would draw the same
+        bits from the generator itself."""
+        if generator is None and self._uniforms is not None:
+            return self._uniforms().to(self.device)
+        return torch.rand((B, 4), device=self.device,
+                          generator=self._gen if generator is None
+                          else generator)
+
+    @property
+    def _pnp_threshold(self) -> float:
+        """RANSAC's inlier gate, squared, in normalized coordinates."""
+        return (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
 
     def _find_pnp(self, xyz, rays, valid, B=RANSAC_B,
                   max_depth=float("inf"), generator=None):
-        """PnP RANSAC + GN refine, drawing from :meth:`_draw`."""
-        thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
-        return find_pnp_ransac(xyz, rays, valid, threshold=thr, B=B,
+        """PnP RANSAC + GN refine on :meth:`_draws`."""
+        return find_pnp_ransac(xyz, rays, valid,
+                               threshold=self._pnp_threshold, B=B,
                                max_depth=max_depth,
-                               **self._draw(generator))
+                               uniforms=self._draws(B, generator))
 
     def _kp_depths(self, depth: torch.Tensor, feats: Features):
         """Per-keypoint metric depth (K,): the depth image at the
@@ -771,68 +666,41 @@ class KeyframeSLAM:
     def _extract(self, img: torch.Tensor, span: str,
                  n_levels: Optional[int] = None) -> Features:
         """``img``'s features with ``cfg``'s extraction parameters
-        (``n_levels`` in place of ``cfg.n_levels`` where given).  On the
-        card with ``batch_graphs``: a replay of the process's CUDA graph
-        of :func:`_extract_body` for what the input shows and the
-        parameters the body reads (device, shape, dtype, ``max_kps``,
-        threshold, ``use_kernels``, levels, scale), captured on first use;
-        copy-in, replay and the copies of every ``Features`` field hold
-        one lock, so features kept across calls (a stereo frame's left
-        image while its right replays, ``_prev_feats``, a keyframe's)
-        never alias the graph's buffers.  Elsewhere the same body,
-        eagerly.  Counters: ``<span>/graph`` (1 a replay, 0 an eager
-        call) and ``<span>/capture_s`` (each capture's
-        ``BatchGraph.capture_s``)."""
+        (``n_levels`` in place of ``cfg.n_levels`` where given), by
+        :func:`~gslam_tpu_torch.ops.cuda.graphs.run` over the process's
+        graph of :func:`_extract_body` for the input's device, shape and
+        dtype and the parameters.  Counters ``<span>/graph`` (1 a replay,
+        0 an eager call) and ``<span>/capture_s``."""
         c = self.cfg
         params = (c.max_kps, c.fast_threshold, c.use_kernels,
                   c.n_levels if n_levels is None else n_levels,
                   c.pyramid_scale)
-        inputs = dict(img=img)
-        tm = self.timer
-        if self.device.type != "cuda" or not self.batch_graphs:
-            tm.count(f"{span}/graph", 0)
-            return _extract_body(*params, inputs)
-        out = _replay(_EXTRACT_GRAPHS, _EXTRACT_LOCK,
-                      (img.device, *img.shape, img.dtype, *params),
-                      functools.partial(_extract_body, *params), inputs, tm,
-                      f"{span}/capture_s")
-        tm.count(f"{span}/graph", 1)
-        return out
+        return graphs.run(
+            graphs.PROCESS, ("extract", img.device, *img.shape, img.dtype,
+                             *params),
+            functools.partial(_extract_body, *params), dict(img=img),
+            enabled=self.use_graphs, timer=self.timer, span=span,
+            replay_counter=f"{span}/graph")
 
     def _track_pnp(self, xyz, rays, valid, generator=None,
                    span="slam/track_fused"):
-        """A tracked frame's PnP RANSAC + GN refine.  On the card with
-        ``batch_graphs``: the frame's (B, 4) uniforms drawn here, then a
-        replay of the process's CUDA graph of ``find_pnp_ransac`` for what
-        the input shows (device, N, dtype, B, threshold, max depth, GN
-        iterations), captured on first use; copy-in, replay and the
-        outputs' copies out hold one lock.  Elsewhere :meth:`_find_pnp`,
-        eagerly.  The draw comes from :meth:`_draw` as the eager call
-        inside ``ransac_sample_indices`` takes it, so both give the same
-        bits.  Counters: ``<span>/pnp_graph`` (1 a replay, 0 an eager
-        call) and ``<span>/capture_s`` (each capture's
-        ``BatchGraph.capture_s``), ``span`` as :meth:`_track_local_map`'s."""
-        tm = self.timer
-        if self.device.type != "cuda" or not self.batch_graphs:
-            tm.count(f"{span}/pnp_graph", 0)
-            return self._find_pnp(xyz, rays, valid, generator=generator)
-        thr = (self.cfg.pnp_px_threshold / self.camera.fx) ** 2
-        draw = self._draw(generator)
-        if "uniforms" in draw:
-            u = draw["uniforms"].to(self.device)
-        else:
-            u = torch.rand((RANSAC_B, 4), generator=draw["generator"],
-                           device=self.device)
-        inputs = dict(xyz=xyz, rays=rays, valid=valid, uniforms=u)
-        # (device, N, dtype) from the input, then _pnp_body's parameters:
-        # B, threshold, max_depth, refine_iters (find_pnp_ransac's default)
-        key = (xyz.device, xyz.shape[0], xyz.dtype,
-               RANSAC_B, thr, float("inf"), 5)
-        out = _replay(_PNP_GRAPHS, _PNP_LOCK, key,
-                      functools.partial(_pnp_body, *key[3:]), inputs, tm,
-                      f"{span}/capture_s")
-        tm.count(f"{span}/pnp_graph", 1)
-        return out
+        """A tracked frame's PnP RANSAC + GN refine on :meth:`_draws`, by
+        :func:`~gslam_tpu_torch.ops.cuda.graphs.run` over the process's
+        graph of :func:`_pnp_body` for what the input shows (device, N,
+        dtype, B, threshold, max depth, GN iterations).  Counters
+        ``<span>/pnp_graph`` (1 a replay, 0 an eager call) and
+        ``<span>/capture_s``, ``span`` as :meth:`_track_local_map`'s."""
+        u = self._draws(RANSAC_B, generator)
+        # _pnp_body's parameters: B, threshold, max_depth, refine_iters
+        # (find_pnp_ransac's default)
+        params = (RANSAC_B, self._pnp_threshold, float("inf"), 5)
+        return graphs.run(
+            graphs.PROCESS, ("pnp", xyz.device, xyz.shape[0], xyz.dtype,
+                             *params),
+            functools.partial(_pnp_body, *params),
+            dict(xyz=xyz, rays=rays, valid=valid, uniforms=u),
+            enabled=self.use_graphs, timer=self.timer, span=span,
+            replay_counter=f"{span}/pnp_graph")
 
     # ------------------------------------------------------------------
     def track_batch(self, frames: List[FrameData]) -> List[torch.Tensor]:
@@ -937,20 +805,11 @@ class KeyframeSLAM:
             kf_pose=self.arena.frame_pose[self.last_kf_id][:7])
 
     def _run_batch(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
-        """The K-frame body: eager on the CPU (and with ``batch_graphs``
-        False); on the card, a replay of this system's graph for the
-        inputs' shapes (captured on first use), its outputs copied out of
-        the graph's buffers."""
-        if self.device.type != "cuda" or not self.batch_graphs:
-            return self._batch_body(inputs)
-        key = tuple(inputs["imgs"].shape)
-        graph = self._graphs.get(key)
-        if graph is None:
-            with self.timer.section("slam/track_batch/capture"):
-                graph = self._graphs[key] = BatchGraph(self._batch_body,
-                                                       inputs)
-            self.timer.count("slam/track_batch/capture_s", graph.capture_s)
-        return _clone(graph(inputs))
+        """The K-frame body by :func:`~gslam_tpu_torch.ops.cuda.graphs.run`
+        over this system's graph for the inputs' shapes."""
+        return graphs.run(self.graph_cache, tuple(inputs["imgs"].shape),
+                          self._batch_body, inputs, enabled=self.use_graphs,
+                          timer=self.timer, span="slam/track_batch")
 
     def _batch_body(self, x: Dict[str, torch.Tensor]) -> BatchResult:
         """K frames of extract (B1, B2) -> projection under the
@@ -964,7 +823,7 @@ class KeyframeSLAM:
         cam = self.camera
         xyz, desc, valid = x["slab_xyz"], x["slab_desc"], x["slab_valid"]
         pose_wc, velocity, fs = x["pose_wc"], x["velocity"], x["fs_kf"]
-        thr = (c.pnp_px_threshold / cam.fx) ** 2
+        thr = self._pnp_threshold
         match = match_hamming_gated if c.use_kernels \
             else match_descriptors_gated
         stopped = torch.zeros((), dtype=torch.bool, device=xyz.device)

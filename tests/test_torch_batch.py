@@ -31,8 +31,9 @@ from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.eval.trajectory import evaluate_trajectory
 from gslam_tpu_torch.map.arena import arena_stats
 from gslam_tpu_torch.models.keyframe_slam import (
-    BatchResult, KeyframeSLAM, SLAMConfig, tensor_leaves,
+    BatchResult, KeyframeSLAM, SLAMConfig,
 )
+from gslam_tpu_torch.ops.cuda.graphs import tensor_leaves
 from tests.test_torch_slam import (
     CFG, FULL_CFG, FULL_SEQUENCE, JData, datasets,
 )

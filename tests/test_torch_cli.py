@@ -329,7 +329,7 @@ def test_debug_nojit_batched_equals_the_eager_run(tmp_path):
         s = Svar()
         s.parse_main(["play", "-dataset", path, "-slam", "keyframe",
                       "-debug.nojit", nojit, *flags])
-        assert cli._build_slam(ds, s, torch.device("cpu")).batch_graphs \
+        assert cli._build_slam(ds, s, torch.device("cpu")).use_graphs \
             is graphs
 
 

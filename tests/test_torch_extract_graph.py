@@ -8,7 +8,7 @@ shape (``KeyframeSLAM._extract``) against the eager call.
 * On the card (marker ``cuda``; skips without one): the graph's features
   equal the eager call's in every ``Features`` field, bit for bit, at
   480x640, 376x1241 and with a three-level pyramid; a ``KeyframeSLAM``
-  and a ``StereoSLAM`` episode with ``batch_graphs`` True and False give
+  and a ``StereoSLAM`` episode with ``use_graphs`` True and False give
   the same poses, match counts and inlier counts; the left image's
   features stay as they were after the right image replays the same
   graph; a second system replays the first one's graph without a capture
@@ -25,7 +25,7 @@ import torch
 import gslam_tpu_torch.models  # noqa: F401  (registers the systems)
 from gslam_tpu_torch.app.registry import SLAMS
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
-from gslam_tpu_torch.models import keyframe_slam
+from gslam_tpu_torch.ops.cuda.graphs import PROCESS
 from gslam_tpu_torch.ops.frontend import (
     Features, extract_features, extract_features_pyramid,
 )
@@ -40,6 +40,11 @@ SYSTEMS = {"keyframe": ({}, "keyframe"),
                       "stereo")}
 
 
+def extract_graphs():
+    """The process's extraction graphs."""
+    return [g for k, g in PROCESS.items() if k[0] == "extract"]
+
+
 def scene(system, **over):
     ds = SyntheticDataset(**{**SCENE, **SYSTEMS[system][0], **over})
     ds.open("synth://")
@@ -49,7 +54,7 @@ def scene(system, **over):
 def run(device, system, frames, camera, graphs, **cfg):
     slam = SLAMS.create(SYSTEMS[system][1], camera, device=device,
                         **{**CFG, **cfg})
-    slam.batch_graphs = graphs
+    slam.use_graphs = graphs
     for f in frames:
         slam.track(f)
     return slam
@@ -73,7 +78,7 @@ def assert_same(a: Features, b: Features):
 @pytest.mark.parametrize("system", sorted(SYSTEMS))
 def test_cpu_track_stays_eager(system):
     frames, camera = scene(system)
-    keyframe_slam._EXTRACT_GRAPHS.clear()
+    PROCESS.clear()
     slam = run("cpu", system, frames[:5], camera, graphs=True)
     st = slam.timer.stats()
     spans = ["slam/extract"] + (["slam/stereo"] if system == "stereo"
@@ -83,7 +88,7 @@ def test_cpu_track_stays_eager(system):
         assert st[f"{span}/graph"]["total"] == 0
         assert f"{span}/capture_s" not in st
     assert ("slam/stereo/graph" in st) == (system == "stereo")
-    assert keyframe_slam._EXTRACT_GRAPHS == {}
+    assert PROCESS == {}
 
 
 @pytest.mark.parametrize("n_levels,levels_arg", [(1, None), (3, None),
@@ -100,7 +105,7 @@ def test_cpu_extract_equals_extract_features(n_levels, levels_arg):
     assert_same(got, want)
     assert int(got.count) > 20
     assert slam.timer.stats()["slam/extract/graph"]["total"] == 0
-    assert keyframe_slam._EXTRACT_GRAPHS == {}
+    assert PROCESS == {}
 
 
 @pytest.fixture
@@ -123,7 +128,7 @@ def test_graph_equals_eager_extraction_on_the_card(dev, shape):
     (H, W), levels = SHAPES[shape]
     frames, camera = scene("keyframe", n_frames=3, width=W, height=H,
                            n_points=3000)
-    keyframe_slam._EXTRACT_GRAPHS.clear()
+    PROCESS.clear()
     slam = SLAMS.create("keyframe", camera, device=dev, max_kps=512,
                         fast_threshold=0.06, n_levels=levels)
     for f in frames:
@@ -134,7 +139,7 @@ def test_graph_equals_eager_extraction_on_the_card(dev, shape):
         assert_same(got, want)
         assert_same(again, want)
         assert int(got.count) > 50
-    (graph,) = keyframe_slam._EXTRACT_GRAPHS.values()
+    (graph,) = extract_graphs()
     assert graph.replays == 2 * len(frames)
     assert graph.captured["fast_nms"] == graph.captured["brief"] == levels
     st = slam.timer.stats()
@@ -146,7 +151,7 @@ def test_graph_equals_eager_extraction_on_the_card(dev, shape):
 @pytest.mark.parametrize("system", sorted(SYSTEMS))
 def test_graph_replay_equals_eager_episode_on_the_card(dev, system):
     frames, camera = scene(system)
-    keyframe_slam._EXTRACT_GRAPHS.clear()
+    PROCESS.clear()
     graph = run(dev, system, frames, camera, graphs=True)
     eager_run = run(dev, system, frames, camera, graphs=False)
     again = run(dev, system, frames, camera, graphs=True)
@@ -170,7 +175,7 @@ def test_graph_replay_equals_eager_episode_on_the_card(dev, system):
         st = slam.timer.stats()
         assert "slam/stereo/capture_s" not in st
     assert "slam/extract/capture_s" not in again.timer.stats()
-    assert len(keyframe_slam._EXTRACT_GRAPHS) == 1
+    assert len(extract_graphs()) == 1
 
 
 @pytest.mark.cuda

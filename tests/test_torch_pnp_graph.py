@@ -7,7 +7,7 @@
   ``track`` stays eager there (the counter ``slam/track_fused/pnp_graph``
   observes 0 a tracked frame, no graph is cached).
 * On the card (marker ``cuda``; skips without one): a ``KeyframeSLAM``
-  over 32 synthetic RGB-D frames with ``batch_graphs`` True (graph
+  over 32 synthetic RGB-D frames with ``use_graphs`` True (graph
   replays) and False (eager) on the same seed gives the same poses,
   match counts and inlier counts bit for bit, with draws from the
   generator or from a ``uniforms`` hook; the counter observes 1 on every
@@ -30,8 +30,8 @@ from gslam_tpu_torch.app.registry import SLAMS
 from gslam_tpu_torch.core.se3 import se3_apply
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.estimation.pnp import find_pnp_ransac
-from gslam_tpu_torch.models import keyframe_slam
 from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
+from gslam_tpu_torch.ops.cuda.graphs import PROCESS
 
 SCENE = dict(n_frames=32, n_points=300, width=192, height=144,
              motion="line", depth=True)
@@ -81,10 +81,15 @@ def test_hoisted_draw_equals_the_generator_draw(seed):
 def run(device, frames, camera, graphs, uniforms=None):
     slam = KeyframeSLAM(camera, SLAMConfig(**CFG), device=device,
                         uniforms=uniforms)
-    slam.batch_graphs = graphs
+    slam.use_graphs = graphs
     for f in frames:
         slam.track(f)
     return slam
+
+
+def pnp_graphs():
+    """The process's PnP graphs."""
+    return [g for k, g in PROCESS.items() if k[0] == "pnp"]
 
 
 def scene():
@@ -95,13 +100,13 @@ def scene():
 
 def test_cpu_track_stays_eager():
     frames, camera = scene()
-    keyframe_slam._PNP_GRAPHS.clear()
+    PROCESS.clear()
     slam = run("cpu", frames[:6], camera, graphs=True)
     st = slam.timer.stats()
     assert st["slam/track_fused/pnp_graph"]["count"] == 5
     assert st["slam/track_fused/pnp_graph"]["total"] == 0
     assert "slam/track_fused/capture_s" not in st
-    assert keyframe_slam._PNP_GRAPHS == {}
+    assert PROCESS == {}
 
 
 class Draws:
@@ -127,7 +132,7 @@ def dev():
 @pytest.mark.parametrize("draws", ["generator", "hook"])
 def test_graph_replay_equals_eager_on_the_card(dev, draws):
     frames, camera = scene()
-    keyframe_slam._PNP_GRAPHS.clear()
+    PROCESS.clear()
 
     def hook():
         return None if draws == "generator" else Draws(7)
@@ -147,7 +152,7 @@ def test_graph_replay_equals_eager_on_the_card(dev, draws):
         assert (st["count"], st["total"]) == (tracked, total)
     assert graph.timer.stats()["slam/track_fused/capture_s"]["count"] == 1
     assert "slam/track_fused/capture_s" not in again.timer.stats()
-    assert len(keyframe_slam._PNP_GRAPHS) == 1
+    assert len(pnp_graphs()) == 1
 
 
 # scene overrides, system, config overrides: the other systems whose
@@ -171,7 +176,7 @@ def test_other_systems_take_the_graph_on_the_card(dev, variant):
     runs = []
     for graphs in (True, False):
         slam = SLAMS.create(system, ds.camera, device=dev, **CFG, **over_cfg)
-        slam.batch_graphs = graphs
+        slam.use_graphs = graphs
         for f in frames:
             slam.track(f)
         runs.append(slam)
