@@ -1904,7 +1904,7 @@ def phase_graph_vs_eager(camera, frames, cfg=None, at=BATCH_EAGER_AT):
         slam.track(fr)
     batch = frames[at:at + BATCH_K]
     imgs = torch.from_numpy(np.stack([fr.image for fr in batch])).to(DEVICE)
-    slab = slam._slab(slam.arena, slam._kf_tensor())
+    slab = slam._slab(slam.arena, "slam/track_batch")
     x = slam._batch_inputs(imgs, slam._batch_uniforms(BATCH_K), *slab[1:])
     t0 = time.perf_counter()
     eager = slam._batch_body(x)

@@ -302,6 +302,7 @@ class KeyframeSLAM:
         self.timestamps: List[float] = []
         self.stats: List[dict] = []
         self._last_track = None            # (slab_ids, matches, inliers)
+        self._slab_cache = None            # (key, [(tensor, version)], ids)
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
         # track_batch's graphs, by batch shape: its body reads this
@@ -602,12 +603,35 @@ class KeyframeSLAM:
         return torch.arange(self.cfg.max_kps, dtype=torch.int32,
                             device=self.device)
 
-    def _slab(self, arena: MapArena, last_kf):
-        """Covisibility slab of ``last_kf``: (ids, xyz, desc, valid)."""
+    def _slab(self, arena: MapArena, span: str):
+        """Covisibility slab of the last keyframe: (ids, xyz, desc,
+        valid).
+
+        The ids (:func:`covis_union_ids`) are a pure function of
+        ``last_kf_id``, the slab's parameters and the arena's
+        ``obs_frame``, ``obs_point``, ``obs_valid`` and ``frame_valid``,
+        which a tracked frame does not write: the last result is kept
+        with those tensors and their ``_version`` (an in-place write
+        moves it), and reused while all are the same.  Positions,
+        descriptors and flags are gathered fresh.  Counter
+        ``<span>/slab_hit``, one observation a call: 1 where the ids were
+        reused, 0 where they were computed."""
         c = self.cfg
-        uniq = covis_union_ids(arena, last_kf, c.local_map_size,
-                               window=min(c.ba_window, c.cap_frames - 1),
-                               min_common=5)
+        key = (self.last_kf_id, c.local_map_size,
+               min(c.ba_window, c.cap_frames - 1), 5)
+        src = (arena.obs_frame, arena.obs_point, arena.obs_valid,
+               arena.frame_valid)
+        got = self._slab_cache
+        hit = (got is not None and got[0] == key
+               and all(a is b and a._version == v
+                       for a, (b, v) in zip(src, got[1])))
+        if hit:
+            uniq = got[2]
+        else:
+            uniq = covis_union_ids(arena, self._kf_tensor(), key[1],
+                                   window=key[2], min_common=key[3])
+            self._slab_cache = (key, [(t, t._version) for t in src], uniq)
+        self.timer.count(f"{span}/slab_hit", int(hit))
         slab_ids = uniq.clamp_min(0).long()
         return (slab_ids, arena.point_xyz[slab_ids],
                 arena.point_desc[slab_ids],
@@ -629,8 +653,7 @@ class KeyframeSLAM:
         tm = self.timer
         with tm.section(span):
             with tm.section(f"{span}/slab"):
-                last_kf = self._kf_tensor()
-                slab_ids, xyz, desc, valid = self._slab(arena, last_kf)
+                slab_ids, xyz, desc, valid = self._slab(arena, span)
             with tm.section(f"{span}/match"):
                 uv_pred, proj_ok = cam.project(se3_apply(pose_cw_pred, xyz))
                 visible = valid & proj_ok
@@ -736,8 +759,8 @@ class KeyframeSLAM:
             tm = self.timer
             tm.frame = fr.id
             with tm.section("slam/track_batch"):
-                slab_ids, xyz, desc, valid = self._slab(self.arena,
-                                                        self._kf_tensor())
+                slab_ids, xyz, desc, valid = self._slab(
+                    self.arena, "slam/track_batch")
                 res = self._run_batch(self._batch_inputs(imgs, uniforms, xyz,
                                                          desc, valid))
                 with tm.section("slam/track_batch/fetch"):
@@ -944,10 +967,10 @@ class KeyframeSLAM:
                                        device=self.device), kp, obs_ok)
         return arena, matched
 
-    def _near_existing(self, arena, last_kf, pose_cw, kp_uv):
+    def _near_existing(self, arena, pose_cw, kp_uv):
         """(K,) mask: keypoint within dedup_radius_px of a valid map
-        point of ``last_kf``'s slab projected into this frame."""
-        _, xyz, _, valid = self._slab(arena, last_kf)
+        point of the last keyframe's slab projected into this frame."""
+        _, xyz, _, valid = self._slab(arena, "slam/keyframe")
         uvs, pok = self.camera.project(se3_apply(pose_cw, xyz))
         d2 = ((kp_uv[:, None, :] - uvs[None, :, :]) ** 2).sum(-1)
         d2 = torch.where((valid & pok)[None, :], d2, float("inf"))
@@ -1025,7 +1048,7 @@ class KeyframeSLAM:
                          & torch.isfinite(d))
                 if self.initialized:
                     newok = newok & ~self._near_existing(
-                        self.arena, self._kf_tensor(), pose_cw, feats.uv)
+                        self.arena, pose_cw, feats.uv)
                 self.arena = self._new_points(self.arena, fid, pose_cw,
                                               feats, newok)
             elif self.initialized:

@@ -128,7 +128,7 @@ def test_batch_body_state():
     draws = FrameDraws(8)
     draws.slam = slam
     slam._uniforms = draws
-    slab_ids, xyz, desc, valid = slam._slab(slam.arena, slam._kf_tensor())
+    slab_ids, xyz, desc, valid = slam._slab(slam.arena, "slam/track_batch")
     imgs = torch.stack([torch.as_tensor(f.image) for f in frames[1:5]])
     res = slam._run_batch(slam._batch_inputs(
         imgs, slam._batch_uniforms(4), xyz, desc, valid))
@@ -235,7 +235,7 @@ def test_batch_body_has_no_host_reads(use_kernels):
     _, dt = datasets(n_frames=4)
     frames = list(dt)
     slam, _ = port_run(frames[:1], dt.camera, cfg, batched=False)
-    slab_ids, xyz, desc, valid = slam._slab(slam.arena, slam._kf_tensor())
+    slab_ids, xyz, desc, valid = slam._slab(slam.arena, "slam/track_batch")
     imgs = torch.stack([torch.as_tensor(f.image) for f in frames[1:]])
     x = slam._batch_inputs(imgs, torch.rand(3, 256, 4), xyz, desc, valid)
     with HostReads() as rec:

@@ -173,7 +173,7 @@ def test_batch_graph_equals_the_eager_body(dev):
         slam.track(fr)
     imgs = torch.from_numpy(np.stack(
         [fr.image for fr in frames[4:4 + K]])).to(dev)
-    slab = slam._slab(slam.arena, slam._kf_tensor())
+    slab = slam._slab(slam.arena, "slam/track_batch")
     x = slam._batch_inputs(imgs, slam._batch_uniforms(K), *slab[1:])
     eager = graphs.clone(slam._batch_body(x))
     for _ in range(2):

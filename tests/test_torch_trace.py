@@ -15,7 +15,7 @@
 * Counters: ``stats()`` reports them with the ``count`` / ``total`` keys
   that ``slambench.run.merge_sections`` sums; a tensor value is summed
   where it lies and read to the host only in ``stats()``.
-* The benchmark's eleven readers of these spans and counters on a
+* The benchmark's twelve readers of these spans and counters on a
   hand-built ``slambench.run.Run``, and on one without them.
 * ``play -profile DIR -cpu true`` writes a trace that holds the
   program's spans.
@@ -338,6 +338,7 @@ def hand_run():
         "slam/track_batch/capture_s": s(3, 0.6),
         "slam/extract/graph": s(100, 95),
         "slam/stereo/graph": s(100, 100),
+        "slam/track_fused/slab_hit": s(90, 75),
     }
     run.traced_sections = {
         "slam/track_fused/slab": s(30, 0.6),
@@ -354,6 +355,7 @@ def hand_run():
         "slam/track_batch/capture_s": s(1, 0.3),
         "slam/extract/graph": s(40, 40),
         "slam/stereo/graph": s(40, 40),
+        "slam/track_fused/slab_hit": s(30, 27),
     }
     return run
 
@@ -372,6 +374,8 @@ READ = {
     "capture_ms": 0.3 / 60 * 1e3,
     # both images' counters outside the trace: 55 + 60 replays of 120
     "extract_graph_pct": 100.0 * (55 + 60) / 120,
+    # the slab's ids reused outside the trace: 48 of 60 frames
+    "slab_hit_pct": 100.0 * 48 / 60,
 }
 
 
