@@ -233,6 +233,89 @@ def _extract_body(max_kps: int, threshold: float, use_kernels: bool,
                             use_kernels=use_kernels)
 
 
+class BatchParams(NamedTuple):
+    """What :func:`_batch_body` reads of a system besides its camera."""
+
+    max_kps: int
+    fast_threshold: float
+    use_kernels: bool
+    gate_radius_px: float
+    match_max_dist: float
+    match_ratio: float
+    threshold: float             # RANSAC's gate, squared, normalized
+    min_track_inliers: int
+    max_pose_jump: float
+    kf_min_gap: int
+    kf_max_gap: int
+    kf_min_inlier_frac: float
+
+
+def _batch_body(p: BatchParams, cam: Camera, x: Dict[str, torch.Tensor]
+                ) -> BatchResult:
+    """K frames of extract (B1, B2) -> projection under the
+    constant-velocity prediction -> gated matching (B4) -> PnP RANSAC +
+    GN refine against the fixed slab, with track()'s gates and
+    _need_keyframe's predicate on the device.  The state stops at the
+    first frame that trips either (``stopped``); that frame's features,
+    matches, inliers and pose are frozen for the host.  No host reads,
+    so that the card can capture it as one graph; it reads only ``x``,
+    ``p`` and ``cam``, so that one graph serves every system."""
+    xyz, desc, valid = x["slab_xyz"], x["slab_desc"], x["slab_valid"]
+    pose_wc, velocity, fs = x["pose_wc"], x["velocity"], x["fs_kf"]
+    match = match_hamming_gated if p.use_kernels \
+        else match_descriptors_gated
+    stopped = torch.zeros((), dtype=torch.bool, device=xyz.device)
+    visits = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
+    found = torch.zeros_like(visits)
+    rows, frozen = [], None
+    for j, (img, uni) in enumerate(zip(x["imgs"], x["uniforms"])):
+        feats = extract_features(img, max_kps=p.max_kps,
+                                 threshold=p.fast_threshold,
+                                 use_kernels=p.use_kernels)
+        pred_cw = se3_mul(velocity, se3_inverse(pose_wc))
+        uv_pred, proj_ok = cam.project(se3_apply(pred_cw, xyz))
+        visible = valid & proj_ok
+        m = match(desc, visible, feats.desc, feats.valid, uv_pred,
+                  feats.uv, p.gate_radius_px, max_dist=p.match_max_dist,
+                  ratio=p.match_ratio)
+        rays = cam.unproject(feats.uv[m.idx.clamp_min(0).long()])[:, :2]
+        T, inl, n = find_pnp_ransac(xyz, rays, m.valid,
+                                    threshold=p.threshold, B=RANSAC_B,
+                                    uniforms=uni)
+        jump = torch.linalg.vector_norm(
+            se3_inverse(T)[:3] - se3_inverse(pred_cw)[:3])
+        # the batch stops at its first frame not accepted, so only
+        # its first may predict from an unmeasured velocity
+        floor = x["floor0"] if j == 0 else p.min_track_inliers
+        ok = (n >= floor) & (jump <= p.max_pose_jump)
+        fs1 = fs + 1
+        ref = m.count.clamp_min(1).to(torch.float32)
+        need_kf = (fs1 >= p.kf_min_gap) & (
+            (fs1 >= p.kf_max_gap)
+            | (n.to(torch.float32) / ref < p.kf_min_inlier_frac)
+            | (n < 2 * p.min_track_inliers))
+        trigger = ~ok | need_kf
+        accept = ~stopped & ~trigger
+        first = ~stopped & trigger
+        velocity = torch.where(accept, se3_mul(T, pose_wc), velocity)
+        pose_wc = torch.where(accept, se3_inverse(T), pose_wc)
+        fs = torch.where(accept, fs1, fs)
+        # visible / found count the accepted frames and the trigger
+        visits = visits + (visible & ~stopped).to(torch.int32)
+        found = found + (m.valid & inl & ~stopped).to(torch.int32)
+        state = (feats, m, inl, T)
+        frozen = state if frozen is None else _where(first, state, frozen)
+        rows.append(torch.cat([
+            pose_wc, se3_mul(x["kf_pose"], pose_wc),
+            torch.stack([n.to(torch.float32), m.count.to(torch.float32),
+                         feats.count.to(torch.float32),
+                         first.to(torch.float32),
+                         ok.to(torch.float32)])]))
+        stopped = stopped | trigger
+    return BatchResult(torch.stack(rows), pose_wc, velocity, visits, found,
+                       *frozen)
+
+
 class KeyframeSLAM:
     """``KeyframeSLAM(camera, SLAMConfig(...)).track(frame)`` per frame,
     or ``.track_batch(frames)`` for ``cfg.dispatch_batch`` frames a
@@ -293,6 +376,9 @@ class KeyframeSLAM:
         ident = self._identity()
         self.pose_wc = ident              # current cam->world
         self.velocity = ident             # T_cw(t) * T_cw(t-1)^-1
+        # False until an accepted frame measures the velocity: till then
+        # the motion model predicts the last pose, a guess (_track_floor)
+        self._velocity_measured = False
         self.last_kf_id: int = -1
         self.frames_since_kf = 0
         self.initialized = False
@@ -305,9 +391,6 @@ class KeyframeSLAM:
         self._slab_cache = None            # (key, [(tensor, version)], ids)
         self._prev_feats: Optional[Features] = None   # mono bootstrap
         self._prev_frame: Optional[FrameData] = None
-        # track_batch's graphs, by batch shape: its body reads this
-        # system's configuration and camera
-        self.graph_cache = graphs.GraphCache()
         # False: the K-frame body and a tracked frame's extraction and PnP
         # run eagerly on the card too (the CLI's -debug.nojit), the
         # counterpart of jax_disable_jit
@@ -441,7 +524,7 @@ class KeyframeSLAM:
             pred_cw = se3_mul(self.velocity, se3_inverse(self.pose_wc))
             pose_cw, n_matches, n_inliers, jump, n_features = \
                 self._track_local_map(feats, pred_cw)
-            ok = n_inliers >= c.min_track_inliers and jump <= c.max_pose_jump
+            ok = n_inliers >= self._track_floor() and jump <= c.max_pose_jump
             ref = self._after_pnp(frame, feats, pose_cw, ok, ok and (
                 self._need_keyframe(n_inliers, n_matches,
                                     self.frames_since_kf + 1)))
@@ -502,6 +585,7 @@ class KeyframeSLAM:
                                               self.frames_since_kf + 1)
         if ok:
             self.velocity = se3_mul(pose_cw, self.pose_wc)
+            self._velocity_measured = True
             self.pose_wc = se3_inverse(pose_cw)
             self.frames_since_kf += 1
             self._lost_frames = 0
@@ -686,21 +770,20 @@ class KeyframeSLAM:
         tm.count(f"{span}/inliers", int(sc[1]))
         return T, int(sc[0]), int(sc[1]), float(sc[2]), int(sc[3])
 
-    def _extract(self, img: torch.Tensor, span: str,
-                 n_levels: Optional[int] = None) -> Features:
-        """``img``'s features with ``cfg``'s extraction parameters
-        (``n_levels`` in place of ``cfg.n_levels`` where given), by
+    def _extract(self, img: torch.Tensor, span: str) -> Features:
+        """``img``'s features with ``cfg``'s extraction parameters, by
         :func:`~gslam_tpu_torch.ops.cuda.graphs.run` over the process's
-        graph of :func:`_extract_body` for the input's device, shape and
-        dtype and the parameters.  Counters ``<span>/graph`` (1 a replay,
-        0 an eager call) and ``<span>/capture_s``."""
+        graph of :func:`_extract_body` for the span, the input's device,
+        shape and dtype and the parameters: one graph a span, so that
+        stereo's left and right images, which may run at once on two
+        streams, never share its buffers.  Counters ``<span>/graph`` (1 a
+        replay, 0 an eager call) and ``<span>/capture_s``."""
         c = self.cfg
-        params = (c.max_kps, c.fast_threshold, c.use_kernels,
-                  c.n_levels if n_levels is None else n_levels,
+        params = (c.max_kps, c.fast_threshold, c.use_kernels, c.n_levels,
                   c.pyramid_scale)
         return graphs.run(
-            graphs.PROCESS, ("extract", img.device, *img.shape, img.dtype,
-                             *params),
+            graphs.PROCESS, ("extract", span, img.device, *img.shape,
+                             img.dtype, *params),
             functools.partial(_extract_body, *params), dict(img=img),
             enabled=self.use_graphs, timer=self.timer, span=span,
             replay_counter=f"{span}/graph")
@@ -792,6 +875,7 @@ class KeyframeSLAM:
             if n_accept > 0:
                 self.pose_wc = res.pose_wc
                 self.velocity = res.velocity
+                self._velocity_measured = True
                 self.frames_since_kf += n_accept
                 self._lost_frames = 0
             out.extend(res.rows[j, :7] for j in range(n_accept))
@@ -824,79 +908,37 @@ class KeyframeSLAM:
             velocity=self.velocity,
             fs_kf=torch.full((), self.frames_since_kf, dtype=torch.int32,
                              device=self.device),
+            floor0=torch.full((), self._track_floor(), dtype=torch.int32,
+                              device=self.device),
             slab_xyz=xyz, slab_desc=desc, slab_valid=valid,
             kf_pose=self.arena.frame_pose[self.last_kf_id][:7])
 
+    def _batch_params(self) -> BatchParams:
+        c = self.cfg
+        return BatchParams(
+            c.max_kps, c.fast_threshold, c.use_kernels, c.gate_radius_px,
+            c.match_max_dist, c.match_ratio, self._pnp_threshold,
+            c.min_track_inliers, c.max_pose_jump, c.kf_min_gap,
+            c.kf_max_gap, c.kf_min_inlier_frac)
+
     def _run_batch(self, inputs: Dict[str, torch.Tensor]) -> BatchResult:
         """The K-frame body by :func:`~gslam_tpu_torch.ops.cuda.graphs.run`
-        over this system's graph for the inputs' shapes."""
-        return graphs.run(self.graph_cache, tuple(inputs["imgs"].shape),
-                          self._batch_body, inputs, enabled=self.use_graphs,
-                          timer=self.timer, span="slam/track_batch")
+        over the process's graph of :func:`_batch_body` for the inputs'
+        device, shape and dtype, the parameters it reads and the camera,
+        so that every system of the process replays one graph (a fresh
+        system captures nothing)."""
+        imgs, cam, p = inputs["imgs"], self.camera, self._batch_params()
+        return graphs.run(
+            graphs.PROCESS, ("batch", imgs.device, *imgs.shape, imgs.dtype,
+                             *p, cam.model, cam.width, cam.height,
+                             cam.params.tobytes()),
+            functools.partial(_batch_body, p, cam), inputs,
+            enabled=self.use_graphs, timer=self.timer,
+            span="slam/track_batch")
 
     def _batch_body(self, x: Dict[str, torch.Tensor]) -> BatchResult:
-        """K frames of extract (B1, B2) -> projection under the
-        constant-velocity prediction -> gated matching (B4) -> PnP RANSAC
-        + GN refine against the fixed slab, with track()'s gates and
-        _need_keyframe's predicate on the device.  The state stops at
-        the first frame that trips either (``stopped``); that frame's
-        features, matches, inliers and pose are frozen for the host.  No
-        host reads, so that the card can capture it as one graph."""
-        c = self.cfg
-        cam = self.camera
-        xyz, desc, valid = x["slab_xyz"], x["slab_desc"], x["slab_valid"]
-        pose_wc, velocity, fs = x["pose_wc"], x["velocity"], x["fs_kf"]
-        thr = self._pnp_threshold
-        match = match_hamming_gated if c.use_kernels \
-            else match_descriptors_gated
-        stopped = torch.zeros((), dtype=torch.bool, device=xyz.device)
-        visits = torch.zeros(xyz.shape[0], dtype=torch.int32,
-                             device=xyz.device)
-        found = torch.zeros_like(visits)
-        rows, frozen = [], None
-        for img, uni in zip(x["imgs"], x["uniforms"]):
-            feats = extract_features(img, max_kps=c.max_kps,
-                                     threshold=c.fast_threshold,
-                                     use_kernels=c.use_kernels)
-            pred_cw = se3_mul(velocity, se3_inverse(pose_wc))
-            uv_pred, proj_ok = cam.project(se3_apply(pred_cw, xyz))
-            visible = valid & proj_ok
-            m = match(desc, visible, feats.desc, feats.valid, uv_pred,
-                      feats.uv, c.gate_radius_px, max_dist=c.match_max_dist,
-                      ratio=c.match_ratio)
-            rays = cam.unproject(feats.uv[m.idx.clamp_min(0).long()])[:, :2]
-            T, inl, n = find_pnp_ransac(xyz, rays, m.valid, threshold=thr,
-                                        B=RANSAC_B, uniforms=uni)
-            jump = torch.linalg.vector_norm(
-                se3_inverse(T)[:3] - se3_inverse(pred_cw)[:3])
-            ok = (n >= c.min_track_inliers) & (jump <= c.max_pose_jump)
-            fs1 = fs + 1
-            ref = m.count.clamp_min(1).to(torch.float32)
-            need_kf = (fs1 >= c.kf_min_gap) & (
-                (fs1 >= c.kf_max_gap)
-                | (n.to(torch.float32) / ref < c.kf_min_inlier_frac)
-                | (n < 2 * c.min_track_inliers))
-            trigger = ~ok | need_kf
-            accept = ~stopped & ~trigger
-            first = ~stopped & trigger
-            velocity = torch.where(accept, se3_mul(T, pose_wc), velocity)
-            pose_wc = torch.where(accept, se3_inverse(T), pose_wc)
-            fs = torch.where(accept, fs1, fs)
-            # visible / found count the accepted frames and the trigger
-            visits = visits + (visible & ~stopped).to(torch.int32)
-            found = found + (m.valid & inl & ~stopped).to(torch.int32)
-            state = (feats, m, inl, T)
-            frozen = state if frozen is None else _where(first, state,
-                                                         frozen)
-            rows.append(torch.cat([
-                pose_wc, se3_mul(x["kf_pose"], pose_wc),
-                torch.stack([n.to(torch.float32), m.count.to(torch.float32),
-                             feats.count.to(torch.float32),
-                             first.to(torch.float32),
-                             ok.to(torch.float32)])]))
-            stopped = stopped | trigger
-        return BatchResult(torch.stack(rows), pose_wc, velocity, visits,
-                           found, *frozen)
+        """:func:`_batch_body` with this system's parameters and camera."""
+        return _batch_body(self._batch_params(), self.camera, x)
 
     def _handle_trigger_frame(self, frame: FrameData, img: torch.Tensor,
                               res: BatchResult, slab_ids, ok: bool,
@@ -916,6 +958,18 @@ class KeyframeSLAM:
         return self.pose_wc
 
     # ------------------------------------------------------------------
+    def _track_floor(self) -> int:
+        """Inliers the motion model's pose needs: ``min_track_inliers``,
+        twice that (the reference-keyframe path's bar) while no accepted
+        frame has measured the velocity.  ORB-SLAM2 does not run its
+        motion model then; the port's predicts the last pose, and with a
+        dense keypoint set (ORB-SLAM2's 2000 over 8 levels) a camera that
+        moved from it finds some hundreds of false matches in the gate,
+        among which RANSAC now and then finds a false consensus above
+        ``min_track_inliers``."""
+        floor = self.cfg.min_track_inliers
+        return floor if self._velocity_measured else 2 * floor
+
     def _need_keyframe(self, n_inliers: int, n_matches: int,
                        frames_since_kf: Optional[int] = None) -> bool:
         """Keyframe promotion, at ``frames_since_kf`` (by default the

@@ -44,7 +44,8 @@ class CapturedGraph:
     back to the eager body: a failed capture or replay raises.  The
     capture restricts only its own thread (``thread_local``), so that
     another thread of the process (the app pipeline's consumers) may use
-    the card meanwhile.
+    the card meanwhile.  The graph keeps ``body``, and with it what the
+    captured kernels read through it (a camera's parameters on the card).
 
     ``captured`` holds the kernel launches one replay makes, by the names
     of :func:`~gslam_tpu_torch.ops.cuda.launch_counts`.  The capture
@@ -55,6 +56,7 @@ class CapturedGraph:
     and instantiation, ``pool_bytes`` the graph's memory pool."""
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor]):
+        self.body = body
         self.static = {k: v.clone() for k, v in inputs.items()}
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -89,11 +91,12 @@ class CapturedGraph:
 class GraphCache(dict):
     """Captured graphs by key, and the lock around their shared buffers.
 
-    Scope rule: a body that reads only its inputs and the parameters in
-    its key is cached per process (:data:`PROCESS`, keys starting with the
-    body's name), so that every system of the process replays one graph;
-    a body bound to an object (a method reading its configuration or its
-    camera) is cached in a cache that object holds."""
+    Scope rule: a body that reads only its inputs, the parameters in its
+    key and what it holds (a camera, keyed by its parameters) is cached
+    per process (:data:`PROCESS`, keys starting with the body's name), so
+    that every system of the process replays one graph; a body bound to
+    an object (a method reading its state) is cached in a cache that
+    object holds."""
 
     def __init__(self):
         super().__init__()

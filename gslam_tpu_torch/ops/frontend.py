@@ -96,13 +96,18 @@ def image_pyramid(img: torch.Tensor, n_levels: int = 4,
     shrinks; so does this (a triangle filter widened by the scale), and
     the two agree to about 1e-6, not bit for bit."""
     out = [img]
-    H, W = img.shape
-    for i in range(1, n_levels):
-        size = (int(round(H / scale ** i)), int(round(W / scale ** i)))
+    for size in pyramid_shapes(*img.shape, n_levels, scale)[1:]:
         out.append(F.interpolate(img[None, None], size=size,
                                  mode="bilinear", align_corners=False,
                                  antialias=True)[0, 0].contiguous())
     return out
+
+
+def pyramid_shapes(H: int, W: int, n_levels: int, scale: float) -> list:
+    """(H, W) of each level of :func:`image_pyramid`: level i is
+    (round(H / scale^i), round(W / scale^i))."""
+    return [(int(round(H / scale ** i)), int(round(W / scale ** i)))
+            for i in range(n_levels)]
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +378,14 @@ def pyramid_budgets(shapes, max_kps: int) -> np.ndarray:
     ks = np.maximum(8, np.round(max_kps * areas / areas.sum()).astype(int))
     ks[0] += max_kps - int(ks.sum())
     return ks
+
+
+def pyramid_levels(shapes, max_kps: int) -> np.ndarray:
+    """(max_kps,) int64: the pyramid level of each keypoint slot of
+    :func:`extract_features_pyramid`, whose levels fill their
+    :func:`pyramid_budgets` slots in level order."""
+    ks = pyramid_budgets(shapes, max_kps)
+    return np.repeat(np.arange(len(ks), dtype=np.int64), ks)
 
 
 def extract_features_pyramid(img: torch.Tensor, max_kps: int = 512,

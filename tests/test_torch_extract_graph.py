@@ -10,9 +10,9 @@ shape (``KeyframeSLAM._extract``) against the eager call.
   480x640, 376x1241 and with a three-level pyramid; a ``KeyframeSLAM``
   and a ``StereoSLAM`` episode with ``use_graphs`` True and False give
   the same poses, match counts and inlier counts; the left image's
-  features stay as they were after the right image replays the same
-  graph; a second system replays the first one's graph without a capture
-  of its own.  Run there by
+  features stay as they were after the right image's replay (the two
+  images have a graph each, keyed by span); a second system replays the
+  first one's graphs without a capture of its own.  Run there by
 
       python -m pytest --noconftest -m cuda tests/test_torch_extract_graph.py
 
@@ -91,20 +91,22 @@ def test_cpu_track_stays_eager(system):
     assert PROCESS == {}
 
 
-@pytest.mark.parametrize("n_levels,levels_arg", [(1, None), (3, None),
-                                                 (3, 1)])
-def test_cpu_extract_equals_extract_features(n_levels, levels_arg):
+@pytest.mark.parametrize("n_levels,span", [(1, "slam/extract"),
+                                           (3, "slam/extract"),
+                                           (3, "slam/stereo")])
+def test_cpu_extract_equals_extract_features(n_levels, span):
     """``_extract`` on the CPU is the eager extraction of ``cfg``'s
-    levels, or of ``n_levels`` where given (the right image's one)."""
+    levels, under either image's span (the right image's goes through
+    the same pyramid)."""
     frames, camera = scene("keyframe", n_frames=2)
     slam = SLAMS.create("keyframe", camera, device="cpu",
                         **{**CFG, "n_levels": n_levels})
     img = torch.as_tensor(frames[1].image)
-    got = slam._extract(img, "slam/extract", n_levels=levels_arg)
-    want = eager(img, n_levels if levels_arg is None else levels_arg)
+    got = slam._extract(img, span)
+    want = eager(img, n_levels)
     assert_same(got, want)
     assert int(got.count) > 20
-    assert slam.timer.stats()["slam/extract/graph"]["total"] == 0
+    assert slam.timer.stats()[f"{span}/graph"]["total"] == 0
     assert PROCESS == {}
 
 
@@ -168,14 +170,14 @@ def test_graph_replay_equals_eager_episode_on_the_card(dev, system):
         for slam, total in ((graph, n), (eager_run, 0), (again, n)):
             st = slam.timer.stats()[f"{span}/graph"]
             assert (st["count"], st["total"]) == (n, total)
-    # the left image's capture serves the right image too, and the
-    # second system replays the first one's graph
-    assert graph.timer.stats()["slam/extract/capture_s"]["count"] == 1
-    for slam in (graph, eager_run, again):
-        st = slam.timer.stats()
-        assert "slam/stereo/capture_s" not in st
-    assert "slam/extract/capture_s" not in again.timer.stats()
-    assert len(extract_graphs()) == 1
+    # each image has a graph of its own (the right image's may replay on
+    # another stream while the left image's runs), captured once, and the
+    # second system replays the first one's graphs
+    for span in spans:
+        assert graph.timer.stats()[f"{span}/capture_s"]["count"] == 1
+        assert f"{span}/capture_s" not in eager_run.timer.stats()
+        assert f"{span}/capture_s" not in again.timer.stats()
+    assert len(extract_graphs()) == len(spans)
 
 
 @pytest.mark.cuda
@@ -186,7 +188,7 @@ def test_left_features_survive_the_right_replay(dev):
     right = torch.as_tensor(frames[1].image_right, device=dev)
     fl = slam._extract(left, "slam/extract")
     kept = Features(*(x.clone() for x in fl))
-    fr = slam._extract(right, "slam/stereo", n_levels=1)
+    fr = slam._extract(right, "slam/stereo")
     assert_same(fl, kept)
     assert_same(fl, eager(left))
     assert_same(fr, eager(right))

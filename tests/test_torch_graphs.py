@@ -11,17 +11,22 @@ and the kernel launch counters it keeps true.
   graph's buffers after the next replay; a graph of ``extract_features``
   moves the launch counters by its warm-up and its replays, and by
   nothing for its capture; ``track_batch``'s graph equals ``_batch_body``
-  run eagerly on the same inputs, every output bit for bit.  Run there by
+  run eagerly on the same inputs, every output bit for bit, and is one
+  graph a process: a fresh system of equal parameters and camera replays
+  it without a capture.  Run there by
 
       python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
 
   (this file imports neither JAX nor the JAX package).
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
+from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
 from gslam_tpu_torch.ops.cuda import (
@@ -158,14 +163,20 @@ def test_launch_counters_count_the_card(dev):
     assert same_bits(graph(dict(img=imgs[0])), eager)
 
 
-@pytest.mark.cuda
-def test_batch_graph_equals_the_eager_body(dev):
-    ds = SyntheticDataset(n_frames=12, n_points=300, width=192, height=144,
-                          motion="line", depth=True)
-    ds.open("synth://")
-    frames = list(ds)
-    K = 4
-    slam = KeyframeSLAM(ds.camera, SLAMConfig(
+def batch_graphs():
+    """The process's ``track_batch`` graphs, by key."""
+    return {k: g for k, g in graphs.PROCESS.items() if k[0] == "batch"}
+
+
+def forget_batch_graphs():
+    for k in list(batch_graphs()):
+        del graphs.PROCESS[k]
+
+
+def batch_system(dev, camera, frames, K):
+    """A system that tracked ``frames[:4]`` one a call, and the inputs of
+    its next K-frame dispatch."""
+    slam = KeyframeSLAM(camera, SLAMConfig(
         max_kps=192, fast_threshold=0.1, ba_window=4, ba_points=256,
         ba_iters=3, cap_frames=32, cap_points=2048, cap_obs=8192,
         dispatch_batch=K), device=dev)
@@ -174,14 +185,62 @@ def test_batch_graph_equals_the_eager_body(dev):
     imgs = torch.from_numpy(np.stack(
         [fr.image for fr in frames[4:4 + K]])).to(dev)
     slab = slam._slab(slam.arena, "slam/track_batch")
-    x = slam._batch_inputs(imgs, slam._batch_uniforms(K), *slab[1:])
+    return slam, slam._batch_inputs(imgs, slam._batch_uniforms(K), *slab[1:])
+
+
+def synthetic_frames():
+    ds = SyntheticDataset(n_frames=12, n_points=300, width=192, height=144,
+                          motion="line", depth=True)
+    ds.open("synth://")
+    return ds.camera, list(ds)
+
+
+@pytest.mark.cuda
+def test_batch_graph_equals_the_eager_body(dev):
+    forget_batch_graphs()
+    camera, frames = synthetic_frames()
+    K = 4
+    slam, x = batch_system(dev, camera, frames, K)
     eager = graphs.clone(slam._batch_body(x))
     for _ in range(2):
         out = slam._run_batch(x)
         assert same_bits(out, eager)
-    (graph,) = slam.graph_cache.values()
+    (graph,) = batch_graphs().values()
     assert graph.replays == 2
     assert graph.captured["fast_nms"] == graph.captured["brief"] == K
     assert graph.captured["gated_matcher"] == K
     assert int(eager.rows[:, 14].min()) >= 12      # the frames tracked
     assert slam.timer.stats()["slam/track_batch/capture_s"]["count"] == 1
+
+
+@pytest.mark.cuda
+def test_a_fresh_system_replays_the_process_batch_graph(dev):
+    """One graph a process for every system of equal parameters and
+    camera: a second system captures nothing and replays it bit for bit
+    equal to its own eager body, also once the system and the camera that
+    captured it are gone; a camera of other parameters gets its own."""
+    forget_batch_graphs()
+    camera, frames = synthetic_frames()
+    K = 4
+
+    def copy(cam, fx_scale=1.0):
+        params = cam.params.copy()
+        params[0] *= fx_scale
+        return Camera(cam.model, cam.width, cam.height, params)
+
+    first, x = batch_system(dev, copy(camera), frames, K)
+    first._run_batch(x)
+    del first, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    second, x = batch_system(dev, copy(camera), frames, K)
+    eager = graphs.clone(second._batch_body(x))
+    assert same_bits(second._run_batch(x), eager)
+    (graph,) = batch_graphs().values()
+    assert graph.replays == 2
+    assert "slam/track_batch/capture_s" not in second.timer.stats()
+    other, x = batch_system(dev, copy(camera, 1.01), frames, K)
+    eager = graphs.clone(other._batch_body(x))
+    assert same_bits(other._run_batch(x), eager)
+    assert len(batch_graphs()) == 2
+    assert other.timer.stats()["slam/track_batch/capture_s"]["count"] == 1

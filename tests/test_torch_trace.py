@@ -339,6 +339,10 @@ def hand_run():
         "slam/extract/graph": s(100, 95),
         "slam/stereo/graph": s(100, 100),
         "slam/track_fused/slab_hit": s(90, 75),
+        "slam/stereo/match": s(90, 0.45),
+        "slam/stereo/extract:device": s(40, 0.12),
+        "slam/stereo/coarse_keypoints": s(100, 100000),
+        "slam/stereo/coarse_depths": s(100, 80000),
     }
     run.traced_sections = {
         "slam/track_fused/slab": s(30, 0.6),
@@ -356,6 +360,10 @@ def hand_run():
         "slam/extract/graph": s(40, 40),
         "slam/stereo/graph": s(40, 40),
         "slam/track_fused/slab_hit": s(30, 27),
+        "slam/stereo/match": s(30, 0.15),
+        "slam/stereo/extract:device": s(40, 0.12),
+        "slam/stereo/coarse_keypoints": s(40, 40000),
+        "slam/stereo/coarse_depths": s(40, 34000),
     }
     return run
 
@@ -376,6 +384,10 @@ READ = {
     "extract_graph_pct": 100.0 * (55 + 60) / 120,
     # the slab's ids reused outside the trace: 48 of 60 frames
     "slab_hit_pct": 100.0 * 48 / 60,
+    "stereo_match_ms": 0.3 / 60 * 1e3,
+    "stereo_extract_device_ms": 0.12 / 40 * 1e3,
+    # the coarse levels' counters outside the trace
+    "coarse_depth_pct": 100.0 * (80000 - 34000) / (100000 - 40000),
 }
 
 
