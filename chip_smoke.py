@@ -4,8 +4,9 @@
 
 Phases (any failure raises and exits non-zero; each prints its seconds):
 
-1. print the card's name and power limit; build the seven CUDA sources
-   (``gslam_tpu_torch/csrc/*.cu``: six with the seven ported kernels and
+1. print the card's name and power limit; build the eight CUDA sources
+   (``gslam_tpu_torch/csrc/*.cu``: six with the seven ported kernels,
+   ``orient.cu`` with the orientation's centroid moments, and
    ``probe.cu``, one ``nvcc`` each, in parallel), print each kernel's
    register / shared-memory use and B5's scratch at C = 8 and C = 32
    (which must stay under 12 MB); then the probes: the launch floor (an
@@ -15,7 +16,9 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    B3, B4 and B7 are stated against;
 2. the tracking step ``track_forward`` (480 x 640 image, K = 512
    keypoints, a 2048-entry map slab): hold B1 FAST+NMS (bit for bit on
-   both maps, twice for the same bits), B2 BRIEF (bit for bit, also at
+   both maps, twice for the same bits), the orientation kernel (both
+   moments and the angle bit for bit at the frame's 512 keypoints, twice
+   for the same bits), B2 BRIEF (bit for bit, also at
    the loop run's K = 384) and B3 matcher against
    their plain versions (B3 also at N = 333, M = 1000 with equal minima
    on both sides of its tile borders, with the valid columns in one
@@ -56,7 +59,8 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
    frame's pyramid (480x640, 384x512, 307x410: 410 is not a multiple of
    4) and B2 bit for bit at each level's keypoint budget; drive
    ``KeyframeSLAM`` with ``n_levels`` 3, ``pyramid_scale`` 1.25 over the
-   64 frames, launch counters around it: B1 and B2 three times a frame,
+   64 frames, launch counters around it: B1, the orientation kernel and
+   B2 three times a frame,
    B4, B5 and B6 launched, >= 90% tracked, >= 3 keyframes, the ATE within
    ``max(0.05, 2 ref + 0.01)`` of the JAX package's run; then warm runs
    in turns (kernels, plain, kernels), the kernel runs repeating the ATE
@@ -164,18 +168,22 @@ Phases (any failure raises and exits non-zero; each prints its seconds):
     bit and launch counters around the first: ``FrameToFrameOdometry``
     over the 64 frames of phase 4 with depth (PnP) and without (two-view
     geometry, the JAX package's draws replayed from
-    ``tests/data/odometry_mono_draws.npz``; ATE after Sim3 alignment), B1
-    and B2 once a frame, B3 once a frame after the first, B3 held against
-    its plain version at the 512 x 512 keypoints of frames 0 and 1, then
-    ms/frame in turns (kernels, plain, kernels); ``DirectOdometry`` (plain
+    ``tests/data/odometry_mono_draws.npz``; ATE after Sim3 alignment), B1,
+    the orientation kernel and B2 once a frame, B3 once a frame after the
+    first, B3 held against its plain version at the 512 x 512 keypoints
+    of frames 0 and 1, then ms/frame in turns (kernels, plain, kernels);
+    ``DirectOdometry`` (plain
     PyTorch, no kernel) over those 64 frames and over 64 frames of the
     ``line`` motion, >= 90% of frames valid, device operations a frame and
     busy share; ``StereoSLAM`` over 48 textured frames of KITTI 00's
-    rectified geometry (1241 x 376, fx 718.856, baseline 0.54 m), two B1
-    and two B2 launches a frame, B4-B6 launched, > 50 map points, B1 held
-    bit for bit at that width; ``GlobalSfM`` over the 10-frame orbit of
-    tests/test_sfm.py (256 x 192; the JAX package's pair draws replayed
-    from ``tests/data/sfm_draws.npz``), B3 once a pair, B5 and B6 in each
+    rectified geometry (1241 x 376, fx 718.856, baseline 0.54 m), two B1,
+    orientation and B2 launches a frame, B4-B6 launched, > 50 map points,
+    B1 held bit for bit at that width, the orientation kernel bit for bit
+    there at K = 512 and at the eight levels of the ORB cell's pyramid
+    (2000 keypoints at 1.2, FAST 0.08); ``GlobalSfM`` over the 10-frame
+    orbit of tests/test_sfm.py (256 x 192; the JAX package's pair draws
+    replayed from ``tests/data/sfm_draws.npz``), B3 once a pair, B5 and
+    B6 in each
     of three global BA rounds, >= 9 edges, B1, B3 and B5 / B6 held at its
     shapes (B5 on the global BA's own problem, C = 10); each with the ATE
     within ``max(0.05, 2 ref + 0.01)`` of the JAX package's run (stereo
@@ -254,7 +262,7 @@ from gslam_tpu_torch.models.odometry import FrameToFrameOdometry
 from gslam_tpu_torch.models.sfm import GlobalSfM
 from gslam_tpu_torch.ops import frontend, vocab
 from gslam_tpu_torch.ops.cuda import (
-    brief, build, fastnms, launch_counts, matcher, schur,
+    brief, build, fastnms, launch_counts, matcher, orient, schur,
 )
 from gslam_tpu_torch.ops.cuda import vocab as vocab_k
 from gslam_tpu_torch.ops.cuda.graphs import (
@@ -423,6 +431,9 @@ ODOM_MONO_DRAWS = Path(__file__).resolve().parent / \
 # textured, noise 0.01; SLAM_CFG.  The right image runs B1 / B2 too, so
 # two of each a frame; 1241 is not a multiple of 4 (B1's 4-byte loads)
 KITTI00_FX = 718.856
+# ORB-SLAM2's KITTI budget (slambench's kitti00_stereo_orb): the shapes
+# the orientation kernel is held to on the stereo frame's pyramid
+ORB_KPS, ORB_LEVELS, ORB_SCALE, ORB_THRESH = 2000, 8, 1.2, 0.08
 STEREO_SEQUENCE = dict(n_frames=48, n_points=1200, width=1241, height=376,
                        fov_deg=2.0 * np.degrees(np.arctan(1241 / 2.0
                                                           / KITTI00_FX)),
@@ -565,9 +576,16 @@ KERNELS = {
                            replaces="gslam_tpu/ops/pallas/schur.py:292"),
     "bow_descent": dict(source="gslam_tpu_torch/csrc/vocab.cu",
                         replaces="gslam_tpu/ops/pallas/vocab.py:69"),
+    # no TPU kernel: the JAX package's orientation is plain jnp, two
+    # full-image moment filters read at the keypoints
+    "orientation": dict(source="gslam_tpu_torch/csrc/orient.cu",
+                        replaces="gslam_tpu/ops/frontend.py:249"),
 }
-TRACK_PATH = ("fast_nms", "brief", "matcher")
-SLAM_PATH = ("fast_nms", "brief", "gated_matcher", "schur", "ba_cost")
+# the kernels of one image's extraction, each once a pyramid level
+EXTRACT_KERNELS = ("fast_nms", "orientation", "brief")
+TRACK_PATH = ("fast_nms", "orientation", "brief", "matcher")
+SLAM_PATH = ("fast_nms", "orientation", "brief", "gated_matcher", "schur",
+             "ba_cost")
 LOOP_PATH = SLAM_PATH + ("bow_descent",)
 # the fleet path: two SLAM runs, the ring BA with the kernels, tracking
 FLEET_PATH = SLAM_PATH + ("schur_partials", "matcher")
@@ -1168,6 +1186,8 @@ def phase_check(inputs):
 
     # B2: BRIEF on that frame's K keypoints (plain detector path)
     blur, uv, ca, sa, kvalid = brief_inputs(img, K)
+    # the orientation's centroid moments at those keypoints
+    rec["orientation"] = check_orientation(img, uv, f"example frame, K = {K}")
     d_k = brief.brief(blur, uv, ca, sa)
     d_p = frontend.brief_from_rotation(blur, uv, ca, sa)
     torch.cuda.synchronize()
@@ -1241,6 +1261,72 @@ def brief_inputs(img, n_kps, threshold=THRESH):
     angle = frontend.compute_orientations(img, uv)
     blur = frontend.gaussian_blur(img, sigma=2.0)
     return blur, uv, torch.cos(angle), torch.sin(angle), kvalid
+
+
+def check_orientation(img, uv, what):
+    """The orientation kernel against its plain version: both moments
+    and the angle they give bit for bit, and two calls the same bits;
+    the record (its inputs for timing)."""
+    m_k = orient.centroid_moments(img, uv)
+    m_p = frontend.centroid_moments(img, uv)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(m_k, m_p))
+    same_angle = torch.equal(torch.atan2(*m_k),
+                             frontend.compute_orientations(img, uv))
+    log(f"orientation ({what}, {tuple(img.shape)}): moments bit for bit "
+        f"{same}, angles bit for bit {same_angle}")
+    if not (same and same_angle):
+        raise AssertionError(f"orientation kernel disagrees with plain "
+                             f"version ({what})")
+    assert_same_bits(lambda: orient.centroid_moments(img, uv),
+                     f"orientation ({what})")
+    return dict(max_abs_err=0.0, args=(img, uv))
+
+
+def orientation_records(img, n_kps, phase):
+    """The orientation kernel held bit for bit (check_orientation) on
+    ``img`` at its top ``n_kps`` keypoints, and at every level of the ORB
+    cell's pyramid of it with that level's budget of its 2000 keypoints;
+    the records, with their timing and the path (``phase``) whose
+    launches their rows report."""
+    h, w = img.shape
+    cases = {f"orientation_{h}x{w}_K{n_kps}": (img, n_kps)}
+    pyr = frontend.image_pyramid(img, ORB_LEVELS, ORB_SCALE)
+    ks = frontend.pyramid_budgets([x.shape for x in pyr], ORB_KPS)
+    for lev, (lvl, k) in enumerate(zip(pyr, ks)):
+        cases[f"orientation_orb_level{lev}_{lvl.shape[0]}x{lvl.shape[1]}"
+              f"_K{k}"] = (lvl, int(k))
+    out = {}
+    for label, (x, k) in cases.items():
+        uv = brief_inputs(x, k, ORB_THRESH)[1]
+        out[label] = check_orientation(x, uv, label)
+        out[label].update(
+            launched_in=[(phase, "orientation")],
+            timing=(lambda x=x, uv=uv: orient.centroid_moments(x, uv),
+                    lambda x=x, uv=uv: frontend.centroid_moments(x, uv),
+                    orient_work(x, uv)))
+    return out
+
+
+def orient_work(img, uv):
+    """(bytes, float operations) of one orientation call: the pixels of
+    the union of the keypoints' 31 x 31 patches (clamped centres, within
+    the image) read once, uv read, both moments written; 2848 operations
+    a keypoint (each of 31 rows 30 products and 59 sums, the fold of the
+    rows as many)."""
+    H, W = img.shape
+    K = uv.shape[0]
+    xi = uv[:, 0].to(torch.int32).long()
+    yi = uv[:, 1].to(torch.int32).long()
+    xi = torch.where(xi < 0, xi + W, xi).clamp(0, W - 1)
+    yi = torch.where(yi < 0, yi + H, yi).clamp(0, H - 1)
+    centre = torch.zeros((1, 1, H, W), device=img.device)
+    centre[0, 0, yi, xi] = 1.0
+    r = frontend.PATCH_R
+    covered = int((torch.nn.functional.max_pool2d(
+        centre, 2 * r + 1, 1, r) > 0).sum())
+    return 4 * covered + 16 * K, 2848 * K
 
 
 def check_fast_nms(img, threshold, what):
@@ -1448,19 +1534,23 @@ def phase_profile(inputs, frames: int = 10):
 
 
 def phase_kernel_times(rec, launched):
-    """B1, B2 and B3 kernel and plain times at the tracking step's
-    shapes, with bounds."""
+    """B1, the orientation kernel, B2 and B3 kernel and plain times at
+    the tracking step's shapes, with bounds."""
     img, thresh = rec["fast_nms"]["args"]
     blur, uv, ca, sa = rec["brief"]["args"]
     desc, valid, fdesc, kvalid = rec["matcher"]["args"]
+    o_img, o_uv = rec["orientation"]["args"]
     work = {
         "fast_nms": fast_work(img, thresh),
+        "orientation": orient_work(o_img, o_uv),
         "brief": brief_work(blur, uv.shape[0]),
         "matcher": matcher_work(desc.shape[0], fdesc.shape[0]),
     }
     calls = {
         "fast_nms": (lambda: fastnms.fast_nms_raw(img, thresh),
                      lambda: fastnms.fast_nms_plain(img, thresh)),
+        "orientation": (lambda: orient.centroid_moments(o_img, o_uv),
+                        lambda: frontend.centroid_moments(o_img, o_uv)),
         "brief": (lambda: brief.brief(blur, uv, ca, sa),
                   lambda: frontend.brief_from_rotation(blur, uv, ca, sa)),
         "matcher": (lambda: matcher.hamming_top2_kernel(desc, valid, fdesc,
@@ -2138,7 +2228,8 @@ def phase_check_pyramid(frame):
 
 def phase_pyramid(camera, frames):
     """KeyframeSLAM with the three-level pyramid over the 64 frames, one
-    a call, counters around it: B1 and B2 three times a frame, B4 once a
+    a call, counters around it: B1, orientation and B2 three times a
+    frame, B4 once a
     tracked frame, B5 and B6 in local BA; tracked-frame, keyframe and
     ATE gates; then warm runs in turns (kernels, plain, kernels), the
     kernel runs repeating the first run's ATE bit for bit."""
@@ -2164,10 +2255,12 @@ def phase_pyramid(camera, frames):
     levels = PYRAMID_CFG["n_levels"]
     # a frame's extraction, plus the warm-up of its graph where this run
     # captured it
-    want = levels * (n + extract_captures(slam))
-    if launched["fast_nms"] != want or launched["brief"] != want:
-        raise AssertionError(f"B1 / B2 not {levels} launches a frame: "
-                             f"{launched}, want {want} with the warm-ups")
+    captures = extract_captures(slam)
+    want = levels * (n + captures)
+    if captures > 1 or any(launched[k] != want for k in EXTRACT_KERNELS):
+        raise AssertionError(f"B1 / orientation / B2 not {levels} launches "
+                             f"a frame: {launched}, want {want} with the "
+                             f"warm-ups of {captures} captures (at most 1)")
     pos = slam.positions()
     if not np.isfinite(pos).all() or pos.shape != (n, 3):
         raise AssertionError("pyramid trajectory not finite or of the wrong "
@@ -3347,13 +3440,14 @@ def odometry_record(odom, frames, with_scale):
                 inliers=[st["n_inliers"] for st in odom.stats])
 
 
-ODOM_PATH = ("fast_nms", "brief", "matcher")
+ODOM_PATH = ("fast_nms", "orientation", "brief", "matcher")
 
 
 def phase_odometry(camera, frames, rec):
     """FrameToFrameOdometry over the 64 frames with depth, then without
-    (the JAX package's draws replayed), counters around each: B1 and B2
-    once a frame, B3 once a frame after the first; >= 90% of frames with
+    (the JAX package's draws replayed), counters around each: B1, the
+    orientation kernel and B2 once a frame, B3 once a frame after the
+    first; >= 90% of frames with
     10 inliers, the ATE gates, each run twice bit for bit; ms/frame in
     turns (kernels, plain, kernels).  B3 held against its plain version
     on frames 0 and 1's descriptors."""
@@ -3387,7 +3481,8 @@ def phase_odometry(camera, frames, rec):
             f"{ref:.6f} m), second run {again['ate_m']!r} m"
             + (f", {draws.taken} draws replayed" if draws else "")
             + f"; inliers {r['inliers']}")
-        want = {"fast_nms": n, "brief": n, "matcher": n - 1}
+        want = {"fast_nms": n, "orientation": n, "brief": n,
+                "matcher": n - 1}
         got = {k: launched[mode][k] for k in want}
         if got != want or any(launched[mode][k] for k in launched[mode]
                               if k not in want):
@@ -3420,11 +3515,12 @@ def phase_odometry(camera, frames, rec):
 
 def phase_stereo(rec):
     """StereoSLAM over 48 frames of KITTI 00's rectified geometry,
-    counters around it: two B1 and two B2 launches a frame, B4-B6
-    launched, >= 90% tracked, > 50 valid map points, the ATE gates, a
-    second run bit for bit; slam/stereo beside slam/track_fused.  B1 and
-    B2 held bit for bit on the first left and right images (1241
-    columns, K = 512)."""
+    counters around it: two B1, orientation and B2 launches a frame,
+    B4-B6 launched, >= 90% tracked, > 50 valid map points, the ATE
+    gates, a second run bit for bit; slam/stereo beside slam/track_fused.
+    B1 and B2 held bit for bit on the first left and right images (1241
+    columns, K = 512), the orientation kernel on the left image at K =
+    512 and over the ORB cell's pyramid of it (orientation_records)."""
     camera, frames, render_s = render(STEREO_SEQUENCE)
     n = len(frames)
     H, W = frames[0].image.shape
@@ -3436,6 +3532,9 @@ def phase_stereo(rec):
         if side == "left":
             rec["fast_nms_stereo_frame"] = fast
             rec[f"brief_stereo_frame_K{SLAM_CFG['max_kps']}"] = brf
+    rec.update(orientation_records(
+        torch.as_tensor(frames[0].image, device=DEVICE), SLAM_CFG["max_kps"],
+        "stereo"))
 
     def run():
         slam = SLAMS.create("stereo", camera, device=DEVICE, **SLAM_CFG)
@@ -3465,10 +3564,13 @@ def phase_stereo(rec):
                              f"{missing}")
     # two images a frame, plus the warm-up of the graph where this run
     # captured it
-    want = 2 * n + extract_captures(slam)
-    if launched["fast_nms"] != want or launched["brief"] != want:
-        raise AssertionError(f"stereo: B1 / B2 launches {launched}, want "
-                             f"{want} each with the warm-ups")
+    captures = extract_captures(slam)
+    want = 2 * n + captures
+    if captures > 2 or any(launched[k] != want for k in EXTRACT_KERNELS):
+        raise AssertionError(f"stereo: B1 / orientation / B2 launches "
+                             f"{launched}, want {want} each with the "
+                             f"warm-ups of {captures} captures (at most 2, "
+                             "one a span)")
     if not np.isfinite(slam.positions()).all() or tracked < 0.9 * n \
             or points <= 50:
         raise AssertionError(f"stereo: {tracked} of {n} tracked, {points} "
@@ -3552,7 +3654,8 @@ def phase_direct(camera, frames):
                                                    launches=launched_l))
 
 
-SFM_PATH = ("fast_nms", "brief", "matcher", "schur", "ba_cost")
+SFM_PATH = ("fast_nms", "orientation", "brief", "matcher", "schur",
+            "ba_cost")
 
 
 def run_sfm(camera, frames, kw, draws, use_kernels=True):
@@ -3629,7 +3732,7 @@ def sfm_cell(sequence, kw, ref, gate, tag, rec):
     if missing:
         raise AssertionError(f"kernels of the {tag} path never ran: "
                              f"{missing}")
-    want = {"fast_nms": n, "brief": n, "matcher": n_pairs,
+    want = {"fast_nms": n, "orientation": n, "brief": n, "matcher": n_pairs,
             "schur": 3 * iters, "ba_cost": 3 * (iters + 1)}
     if any(launched[k] != v for k, v in want.items()) \
             or len(sfm.ba_costs) != 4:

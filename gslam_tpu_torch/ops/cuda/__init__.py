@@ -1,12 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), bound with ctypes.
 
-Each wrapper module (``fastnms``, ``brief``, ``matcher``, ``schur``,
-``vocab``) takes its plain PyTorch version for CPU tensors and, for CUDA
-tensors, launches its kernel or raises; a module-level counter per kernel
-(:data:`LAUNCH_COUNTERS`) counts its launches on the card, which
-:func:`launch_counts` reads (:mod:`.graphs` keeps them true for graphs).
-Sources live in ``gslam_tpu_torch/csrc``; :mod:`.build` compiles them on
-first use.  Importing these modules builds nothing.
+Each wrapper module (``fastnms``, ``orient``, ``brief``, ``matcher``,
+``schur``, ``vocab``) takes its plain PyTorch version for CPU tensors
+and, for CUDA tensors, launches its kernel or raises; a module-level
+counter per kernel (:data:`LAUNCH_COUNTERS`) counts its launches on the
+card, which :func:`launch_counts` reads (:mod:`.graphs` keeps them true
+for graphs).  Sources live in ``gslam_tpu_torch/csrc``; :mod:`.build`
+compiles them on first use.  Importing these modules builds nothing.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ LAUNCH_COUNTERS = {
     "schur": ("schur", "schur_launches"),
     "ba_cost": ("schur", "cost_launches"),
     "schur_partials": ("schur", "partials_launches"),
-    "bow_descent": ("vocab", "launches")}
+    "bow_descent": ("vocab", "launches"),
+    "orientation": ("orient", "launches")}
 
 
 def _wrapper(kernel: str):

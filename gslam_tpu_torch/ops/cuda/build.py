@@ -24,9 +24,10 @@ from gslam_tpu_torch.utils.platform import nvcc_path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-# the six kernel sources, and the measurement probes (an empty kernel
+# the seven kernel sources, and the measurement probes (an empty kernel
 # and two integer loops; not ported kernels)
-SOURCES = ("fastnms", "brief", "matcher", "gated", "schur", "vocab", "probe")
+SOURCES = ("fastnms", "orient", "brief", "matcher", "gated", "schur", "vocab",
+           "probe")
 
 # -fmad=false: no a*b+c contraction, so float products and sums round
 # exactly as the plain PyTorch versions' separate operations do

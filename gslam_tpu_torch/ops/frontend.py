@@ -7,11 +7,12 @@ shift-multiply-adds in the reference's tap order, the FAST arc sums run
 sequentially from the first arc pixel, and top-K selection is a stable
 descending sort (``lax.top_k`` breaks ties by lowest index).
 
-:func:`extract_features` with ``use_kernels=True`` routes the detector
-and the BRIEF sampler through the CUDA kernels of
-:mod:`gslam_tpu_torch.ops.cuda`, which take these functions' results as
-their gold.  :func:`extract_features_pyramid` runs that extraction per
-level of an antialiased bilinear pyramid (:func:`image_pyramid`).
+:func:`extract_features` with ``use_kernels=True`` routes the detector,
+the orientation's centroid moments and the BRIEF sampler through the
+CUDA kernels of :mod:`gslam_tpu_torch.ops.cuda`, which take these
+functions' results as their gold.  :func:`extract_features_pyramid`
+runs that extraction per level of an antialiased bilinear pyramid
+(:func:`image_pyramid`).
 """
 
 from __future__ import annotations
@@ -256,13 +257,22 @@ def orientation_map(img: torch.Tensor, radius: int = PATCH_R
     return _sep_filter(img, ramp, ones), _sep_filter(img, ones, ramp)
 
 
-def compute_orientations(img: torch.Tensor, uv: torch.Tensor,
-                         radius: int = PATCH_R) -> torch.Tensor:
-    """Per-keypoint patch orientation (K,) radians."""
+def centroid_moments(img: torch.Tensor, uv: torch.Tensor,
+                     radius: int = PATCH_R) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """(m01, m10) (K,) at the keypoints: :func:`orientation_map` read at
+    ``uv`` truncated toward zero, by the reference's gather rule.  The
+    plain version of the orientation kernel."""
     m10, m01 = orientation_map(img, radius=radius)
     xi = uv[:, 0].to(torch.int32).long()
     yi = uv[:, 1].to(torch.int32).long()
-    return torch.atan2(_gather2d(m01, yi, xi), _gather2d(m10, yi, xi))
+    return _gather2d(m01, yi, xi), _gather2d(m10, yi, xi)
+
+
+def compute_orientations(img: torch.Tensor, uv: torch.Tensor,
+                         radius: int = PATCH_R) -> torch.Tensor:
+    """Per-keypoint patch orientation (K,) radians."""
+    return torch.atan2(*centroid_moments(img, uv, radius=radius))
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +354,9 @@ def extract_features(img: torch.Tensor, max_kps: int = 512,
 
     detect (FAST + NMS) -> select top-K -> orient (centroid) -> describe
     (rotated BRIEF on the blurred image).  ``use_kernels`` routes the
-    detector and the BRIEF sampler through the CUDA kernels (on CPU
-    tensors those wrappers take the plain versions); False runs the
-    plain PyTorch versions on any device.
+    detector, the centroid moments and the BRIEF sampler through the
+    CUDA kernels (on CPU tensors those wrappers take the plain
+    versions); False runs the plain PyTorch versions on any device.
     """
     if use_kernels:
         from gslam_tpu_torch.ops.cuda.fastnms import fast_nms_raw
@@ -357,7 +367,12 @@ def extract_features(img: torch.Tensor, max_kps: int = 512,
         score = nms(raw)
     uv, val, valid, count = select_keypoints(score, max_kps=max_kps,
                                              raw_score=raw)
-    angle = compute_orientations(img, uv)
+    if use_kernels:
+        from gslam_tpu_torch.ops.cuda import orient
+
+        angle = torch.atan2(*orient.centroid_moments(img, uv))
+    else:
+        angle = compute_orientations(img, uv)
     blur = gaussian_blur(img, sigma=2.0)
     if use_kernels:
         from gslam_tpu_torch.ops.cuda.brief import brief
@@ -395,10 +410,11 @@ def extract_features_pyramid(img: torch.Tensor, max_kps: int = 512,
     """Multi-scale ORB-style extraction over :func:`image_pyramid`.
 
     Each level gets its budget of :func:`pyramid_budgets` and runs
-    :func:`extract_features` at level resolution (B1 and B2 once per
-    level with ``use_kernels``); uv are mapped back to level-0 pixels
-    and the levels concatenated in order, so the set holds ``max_kps``
-    slots and ``count`` is the sum of the levels' counts."""
+    :func:`extract_features` at level resolution (B1, the orientation
+    kernel and B2 once per level with ``use_kernels``); uv are mapped
+    back to level-0 pixels and the levels concatenated in order, so the
+    set holds ``max_kps`` slots and ``count`` is the sum of the levels'
+    counts."""
     pyr = image_pyramid(img, n_levels=n_levels, scale=scale)
     ks = pyramid_budgets([lvl.shape for lvl in pyr], max_kps)
     parts = []

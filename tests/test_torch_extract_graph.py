@@ -144,6 +144,7 @@ def test_graph_equals_eager_extraction_on_the_card(dev, shape):
     (graph,) = extract_graphs()
     assert graph.replays == 2 * len(frames)
     assert graph.captured["fast_nms"] == graph.captured["brief"] == levels
+    assert graph.captured["orientation"] == levels
     st = slam.timer.stats()
     assert st["slam/extract/graph"]["total"] == 2 * len(frames)
     assert st["slam/extract/capture_s"]["count"] == 1

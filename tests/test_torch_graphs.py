@@ -4,7 +4,7 @@ and the kernel launch counters it keeps true.
 * On the CPU: :func:`graphs.run` with CPU inputs runs the body once,
   eagerly, whether graphs are enabled or not; its replay counter observes
   0, no capture is timed and the cache stays empty.
-  :func:`launch_counts` names the eight kernels, each entry its wrapper's
+  :func:`launch_counts` names the nine kernels, each entry its wrapper's
   counter, and :func:`add_launches` moves exactly the counters it names.
 * On the card (marker ``cuda``; skips without one): a small body replays
   bit for bit equal to its eager run, and its result does not alias the
@@ -31,13 +31,13 @@ from gslam_tpu_torch.datasets.synthetic import SyntheticDataset
 from gslam_tpu_torch.models.keyframe_slam import KeyframeSLAM, SLAMConfig
 from gslam_tpu_torch.ops.cuda import (
     LAUNCH_COUNTERS, add_launches, brief, fastnms, graphs, launch_counts,
-    matcher, schur, vocab,
+    matcher, orient, schur, vocab,
 )
 from gslam_tpu_torch.ops.frontend import extract_features
 from gslam_tpu_torch.utils.timer import Timer
 
 WRAPPERS = {"fastnms": fastnms, "brief": brief, "matcher": matcher,
-            "schur": schur, "vocab": vocab}
+            "schur": schur, "vocab": vocab, "orient": orient}
 
 
 def small_body(x):
@@ -75,7 +75,7 @@ def test_run_with_cpu_inputs_is_eager(enabled):
 def test_launch_counts_read_every_wrapper():
     assert set(launch_counts()) == {
         "fast_nms", "brief", "matcher", "gated_matcher", "schur", "ba_cost",
-        "schur_partials", "bow_descent"}
+        "schur_partials", "bow_descent", "orientation"}
     got = launch_counts()
     for kernel, (mod, attr) in LAUNCH_COUNTERS.items():
         assert got[kernel] == getattr(WRAPPERS[mod], attr), kernel
@@ -150,6 +150,7 @@ def test_launch_counters_count_the_card(dev):
     graph = graphs.CapturedGraph(body, dict(img=imgs[0]))
     after_capture = launch_counts()
     assert graph.captured["fast_nms"] == graph.captured["brief"] == 1
+    assert graph.captured["orientation"] == 1
     # the warm-up launched the body once; the capture launched nothing
     assert {k: after_capture[k] - before[k] for k in before} \
         == graph.captured
@@ -208,6 +209,7 @@ def test_batch_graph_equals_the_eager_body(dev):
     (graph,) = batch_graphs().values()
     assert graph.replays == 2
     assert graph.captured["fast_nms"] == graph.captured["brief"] == K
+    assert graph.captured["orientation"] == K
     assert graph.captured["gated_matcher"] == K
     assert int(eager.rows[:, 14].min()) >= 12      # the frames tracked
     assert slam.timer.stats()["slam/track_batch/capture_s"]["count"] == 1

@@ -23,14 +23,15 @@ import torch
 from chip_smoke import (
     FR1_ARGS, LENS_ARGS, LENS_PX_TOL, LENS_RAY_TOL, REMAP_TOL,
     assemble_partials, assert_partials_close, assert_schur_close, ba_case,
-    border_only, cost_order, fast_case, lens_camera, lens_points,
-    matcher_case, pixel_grid, rotated_rig, to_problem, vi_case,
+    border_only, cost_order, extract_captures, fast_case, lens_camera,
+    lens_points, matcher_case, pixel_grid, rotated_rig, to_problem, vi_case,
     without_pad_indices,
 )
 from gslam_tpu_torch.core.camera import Camera
 from gslam_tpu_torch.core.undistort import StereoRectifier, Undistorter, _remap
 from gslam_tpu_torch.ops import frontend, matching
-from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher
+from gslam_tpu_torch.ops.cuda import brief, fastnms, matcher, orient
+from test_torch_orient import ORB_BUDGETS, ORB_LEVELS, edge_slots
 
 pytestmark = pytest.mark.cuda
 
@@ -151,19 +152,99 @@ def test_brief_kernel_at_pyramid_budgets(dev):
         assert torch.equal(d_k, d_p) and int(valid.sum()) > 0.8 * k
 
 
-def test_extract_features_pyramid_kernels_equal_plain(dev):
-    levels, _ = vga_pyramid(dev)
-    img = levels[0]
-    before = (fastnms.launches, brief.launches)
-    f_k = frontend.extract_features_pyramid(img, max_kps=512,
-                                            threshold=0.08, n_levels=3)
-    f_p = frontend.extract_features_pyramid(img, max_kps=512,
-                                            threshold=0.08, n_levels=3,
-                                            use_kernels=False)
-    assert (fastnms.launches, brief.launches) == (before[0] + 3,
-                                                  before[1] + 3)
+def kitti_image(dev, seed=6):
+    """A textured blob image at KITTI's 376 x 1241 on the card."""
+    rng = np.random.default_rng(seed)
+    img = blob_image(rng, 376, 1241, n=1500)
+    img += rng.uniform(0, 0.03, img.shape).astype(np.float32)
+    return torch.as_tensor(img, device=dev)
+
+
+@pytest.mark.parametrize("cell,max_kps,n_levels,scale", [
+    ("vga", 512, 3, 1.25), ("kitti_orb", 2000, 8, 1.2)])
+def test_extract_features_pyramid_kernels_equal_plain(dev, cell, max_kps,
+                                                      n_levels, scale):
+    """Every feature bit for bit, one B1, orientation and B2 launch a
+    level: the VGA pyramid, and the ORB cell's 2000 keypoints over 8
+    levels at 1.2 on 376 x 1241."""
+    img = vga_pyramid(dev)[0][0] if cell == "vga" else kitti_image(dev)
+    kw = dict(max_kps=max_kps, threshold=0.08, n_levels=n_levels,
+              scale=scale)
+    before = (fastnms.launches, orient.launches, brief.launches)
+    f_k = frontend.extract_features_pyramid(img, **kw)
+    f_p = frontend.extract_features_pyramid(img, use_kernels=False, **kw)
+    assert (fastnms.launches, orient.launches, brief.launches) == tuple(
+        b + n_levels for b in before)
     for a, b in zip(f_k, f_p):
         assert torch.equal(a, b)
+    assert int(f_k.count) > 0.5 * max_kps
+
+
+def orient_image(dev, shape):
+    """A textured blob image of ``shape`` on the card: VGA, KITTI, or a
+    level of the ORB pyramid of the KITTI image."""
+    if shape == (480, 640):
+        return vga_pyramid(dev)[0][0]
+    levels = frontend.image_pyramid(kitti_image(dev), n_levels=8, scale=1.2)
+    return levels[ORB_LEVELS.index(shape)]
+
+
+@pytest.mark.parametrize("shape", [(480, 640), *ORB_LEVELS])
+def test_orientation_kernel_bit_exact(dev, shape):
+    """Both moments and the angle bit for bit against the plain version
+    at the keypoints B1 and select_keypoints give at K = 1, 8, 646, 2000
+    and the level's ORB budget, and at slots on the centre's wrap and
+    clamp rules and the corners; one launch a call."""
+    img = orient_image(dev, shape)
+    assert tuple(img.shape) == shape
+    nms, raw = fastnms.fast_nms_plain(img, 0.08)
+    budget = dict(zip(ORB_LEVELS, ORB_BUDGETS)).get(shape, 512)
+    for K in (1, 8, 646, 2000, budget):
+        uv, _, valid, _ = frontend.select_keypoints(nms, max_kps=K,
+                                                    raw_score=raw)
+        for pts in (uv, edge_slots(*shape).to(dev)):
+            before = orient.launches
+            m_k = orient.centroid_moments(img, pts)
+            torch.cuda.synchronize()
+            assert orient.launches == before + 1
+            m_p = frontend.centroid_moments(img, pts)
+            for a, b in zip(m_k, m_p):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(torch.atan2(*m_k),
+                               frontend.compute_orientations(img, pts))
+        assert int(valid.sum()) >= min(K, 40)
+
+
+def test_orientation_kernel_same_bits_over_calls_and_graph_replays(dev):
+    """The same bits from two calls, from a call on other inputs between
+    them, and from two replays of a CUDA graph holding two calls."""
+    img = kitti_image(dev)
+    nms, raw = fastnms.fast_nms_plain(img, 0.08)
+    uv = frontend.select_keypoints(nms, max_kps=2000, raw_score=raw)[0]
+    small = orient_image(dev, ORB_LEVELS[-1])
+    first = orient.centroid_moments(img, uv)
+    other = orient.centroid_moments(small, uv[:50])
+    again = orient.centroid_moments(img, uv)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        orient.centroid_moments(img, uv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = orient.launches
+    with torch.cuda.graph(graph):
+        o1 = orient.centroid_moments(img, uv)
+        o2 = orient.centroid_moments(small, uv[:50])
+    assert orient.launches == before + 2       # counted at capture
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(([t.clone() for t in o1], [t.clone() for t in o2]))
+    for a, b in replays:
+        assert all(torch.equal(x, y) for x, y in zip(a, first))
+        assert all(torch.equal(x, y) for x, y in zip(b, other))
+    assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
 @pytest.mark.parametrize("H,W,K,margin", [
@@ -274,6 +355,13 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         brief.brief(img, torch.zeros((3, 2), device=dev),
                     torch.zeros(4, device=dev), torch.zeros(3, device=dev))
+    uv = torch.zeros((3, 2), device=dev)
+    for bad_img, bad_uv in ((img.double(), uv), (img.t(), uv),
+                            (img, uv.double()), (img, uv.t()),
+                            (img, uv[:, :1]), (img, uv.cpu()),
+                            (img[None], uv)):
+        with pytest.raises(ValueError):
+            orient.centroid_moments(bad_img, bad_uv)
     d = torch.zeros((4, 8), dtype=torch.int32, device=dev)
     v = torch.ones(4, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
@@ -996,14 +1084,20 @@ def test_stereo_slam_on_the_card(dev):
     from gslam_tpu_torch.models.stereo import StereoSLAM
 
     cam, frames = small_frames(6, depth=False, stereo=True, n_points=400)
-    before = (fastnms.launches, brief.launches)
+    before = (fastnms.launches, orient.launches, brief.launches)
     slam = StereoSLAM(cam, SLAMConfig(max_kps=192, fast_threshold=0.1,
                                       kf_min_gap=2, kf_max_gap=3),
                       device=dev)
     for fr in frames:
         slam.track(fr)
-    assert (fastnms.launches - before[0], brief.launches - before[1]) == \
-        (12, 12)
+    # two images a frame, and the warm-up of each extraction graph this
+    # run captured (a graph of the process replays without one): at most
+    # one capture a span, the left image's and the right's
+    captures = extract_captures(slam)
+    assert captures <= 2
+    want = 2 * len(frames) + captures
+    assert (fastnms.launches - before[0], orient.launches - before[1],
+            brief.launches - before[2]) == (want, want, want)
     assert slam._n_frames_host >= 2
     assert int(slam.arena.point_valid.sum()) > 50
     assert ate(slam, frames) < 0.12
