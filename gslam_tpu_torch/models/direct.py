@@ -13,15 +13,38 @@ the geometric residual z_warp - D_cur(u, v) joins the photometric one
 
 The reference's ``lax.scan`` over GN steps is a Python loop here; the
 arithmetic is the reference's.  Plain PyTorch throughout, as the
-reference is plain jnp (no Pallas kernel).  The host reads the final
-level's valid fraction and photometric error once a frame, where the
-JAX package does.
+reference is plain jnp (no Pallas kernel).  On the card a frame's
+alignment, from the motion model's guess through every level's
+gradients, depth resize and GN steps to the tracked state, is the
+replay of one CUDA graph, captured once a process for its shapes and
+parameters, the counterpart of the reference's jitted step.  The host
+reads the final level's valid fraction and photometric error once a
+frame, where the JAX package does.
+
+``finest_level`` (DVO's ``LastLevel``) ends the coarse-to-fine loop
+above the full image: levels ``n_levels - 1`` down to it are aligned, and
+the pose, the valid fraction and the error are the finest aligned
+level's.  The keyframe slab is still selected on level 0.  The JAX
+package has no such field: at 0, the default, the loop ends at the full
+image as the JAX package's does.
+
+Spans: ``direct/pyramid``, ``direct/align`` (the motion model's guess,
+all levels, the tracked state and the fetch; ``direct/align/capture``
+where it captures the graph), ``direct/align/fetch`` (the one fetch: the
+host waiting for the card) and ``direct/keyframe`` (selection, lifting
+and the per-level reference samples).  Counters, one observation a frame that was aligned, from the
+fetch: ``direct/inbounds`` (in-bounds points at the finest aligned
+level), ``direct/points`` (valid slab points), ``direct/keyframes`` (1
+where the frame made a keyframe) and ``direct/lost`` (1 where it
+coasted).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import functools
+import math
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,6 +56,7 @@ from gslam_tpu_torch.core.se3 import (
     se3_apply, se3_exp, se3_identity, se3_inverse, se3_mul,
 )
 from gslam_tpu_torch.datasets.base import FrameData
+from gslam_tpu_torch.ops.cuda import graphs
 from gslam_tpu_torch.ops.frontend import (
     _bilinear, _topk_stable, gaussian_blur, image_pyramid,
 )
@@ -46,6 +70,7 @@ class DirectConfig:
     n_points: int = 1024       # tracked high-gradient pixels
     n_levels: int = 3
     scale: float = 2.0
+    finest_level: int = 0      # last level aligned (DVO's LastLevel)
     gn_iters: int = 12         # per level
     blur_sigma: float = 1.2
     huber_delta: float = 0.08  # intensity units ([0,1] images)
@@ -59,6 +84,12 @@ class DirectConfig:
     use_depth_residual: bool = True
     depth_weight: float = 10.0   # lambda: (sigma_I / sigma_D)^2
     huber_depth: float = 0.10    # meters
+
+    @property
+    def min_track_inliers(self) -> int:
+        """The fewest ``stats["n_inliers"]`` of a frame that was tracked
+        (not coasted): ``min_valid_frac`` of the slab."""
+        return math.ceil(self.min_valid_frac * self.n_points)
 
 
 def _gradients(img: torch.Tensor):
@@ -173,6 +204,52 @@ def _align_level(img, gx, gy, X, I_ref, valid, T_init, iters, fx, fy, cx,
     return T, frac, err
 
 
+class _Aligned(NamedTuple):
+    """What a frame's alignment leaves on the device: ``scalars`` (3,)
+    float32 holds the finest level's valid fraction and photometric
+    error and the slab's valid count, for the one fetch; ``pose_wc`` and
+    ``velocity`` are the state where the frame counts as tracked."""
+    scalars: torch.Tensor
+    pose_wc: torch.Tensor
+    velocity: torch.Tensor
+
+
+def _align_body(levels, gn_iters, huber, depth_weight, huber_d, inputs
+                ) -> _Aligned:
+    """One frame's alignment, coarse to fine, from the constant-velocity
+    guess: ``levels`` holds (level, its intrinsics) from the coarsest
+    down to the finest aligned level; ``inputs`` the state ``pose_wc``,
+    ``velocity`` and ``kf_pose_cw``, the slab ``X`` / ``valid`` / ``count``
+    with its reference samples ``ref<level>``, the frame's
+    ``level<level>`` images and, for the geometric residual, its
+    full-size ``depth``."""
+    pose_wc, kf_pose_cw = inputs["pose_wc"], inputs["kf_pose_cw"]
+    # init: constant velocity in the current-camera chain
+    # T_c(t-1)<-kf = T_c(t-1)<-w o T_w<-kf
+    T_ck_prev = se3_mul(se3_inverse(pose_wc), se3_inverse(kf_pose_cw))
+    T = se3_mul(inputs["velocity"], T_ck_prev)
+    depth = inputs.get("depth")
+    for li, (fxl, fyl, cxl, cyl) in levels:
+        lvl = inputs[f"level{li}"]
+        gx, gy = _gradients(lvl)
+        dl = dgx = dgy = None
+        if depth is not None:
+            # nearest resize: bilinear would blur depth discontinuities
+            # into phantom surfaces
+            dl = _resize_nearest(depth, lvl.shape)
+            dgx, dgy = _gradients(dl)
+        T, fr, er = _align_level(
+            lvl, gx, gy, inputs["X"], inputs[f"ref{li}"], inputs["valid"],
+            T, gn_iters, fxl, fyl, cxl, cyl, huber, depth=dl, dgx=dgx,
+            dgy=dgy, depth_weight=depth_weight, huber_d=huber_d,
+            use_depth=depth is not None)
+    pose_cw = se3_mul(T, kf_pose_cw)
+    return _Aligned(
+        torch.stack([fr.to(torch.float32), er,
+                     inputs["count"].to(torch.float32)]),
+        se3_inverse(pose_cw), se3_mul(pose_cw, pose_wc))
+
+
 def _select_points(img, depth, n_points, min_depth, max_depth, fx, fy, cx,
                    cy):
     """Top-K gradient pixels with valid depth -> (X_kf (K, 3), valid):
@@ -204,18 +281,26 @@ class DirectOdometry:
         self.device = require_device(device)
         self.camera = camera
         self.cfg = config or DirectConfig()
+        if not 0 <= self.cfg.finest_level < self.cfg.n_levels:
+            raise ValueError(
+                f"finest_level {self.cfg.finest_level} is not a level of "
+                f"the {self.cfg.n_levels}-level pyramid")
         self.timer = Timer()
         self.pose_wc = se3_identity(device=self.device)
         self.velocity = se3_identity(device=self.device)  # T_c(t)<-c(t-1)
         self.kf_pose_cw: Optional[torch.Tensor] = None  # current keyframe
         self.kf_X: Optional[torch.Tensor] = None        # (K, 3) kf-cam
         self.kf_valid: Optional[torch.Tensor] = None
+        self.kf_count: Optional[torch.Tensor] = None    # valid points
         self.kf_refs: List[torch.Tensor] = []  # per-level intensities
         self.kf_shapes: List[tuple] = []
         self.frames_since_kf = 0
         self.trajectory: List[torch.Tensor] = []
         self.timestamps: List[float] = []
         self.stats: List[dict] = []
+        # False: the alignment runs eagerly on the card too, the
+        # counterpart of jax_disable_jit
+        self.use_graphs = True
 
     def valid(self) -> bool:
         return True
@@ -231,23 +316,56 @@ class DirectOdometry:
         if depth is None:
             return False
         cam = self.camera
-        base = tuple(pyr[0].shape)
-        X, ok = _select_points(pyr[0], depth, c.n_points, c.min_depth,
-                               c.max_depth, cam.fx, cam.fy, cam.cx, cam.cy)
-        self.kf_X, self.kf_valid = X, ok
-        self.kf_refs = []
-        self.kf_shapes = []
-        for lvl in pyr:
-            fxl, fyl, cxl, cyl = _level_intrinsics(cam, tuple(lvl.shape),
-                                                   base)
-            z = X[:, 2]
-            u = fxl * X[:, 0] / z + cxl
-            v = fyl * X[:, 1] / z + cyl
-            self.kf_refs.append(_bilinear(lvl, u, v))
-            self.kf_shapes.append(tuple(lvl.shape))
-        self.kf_pose_cw = se3_inverse(self.pose_wc)
+        with self.timer.section("direct/keyframe"):
+            base = tuple(pyr[0].shape)
+            X, ok = _select_points(pyr[0], depth, c.n_points, c.min_depth,
+                                   c.max_depth, cam.fx, cam.fy, cam.cx,
+                                   cam.cy)
+            self.kf_X, self.kf_valid = X, ok
+            self.kf_count = ok.sum()
+            self.kf_refs = []
+            self.kf_shapes = []
+            for lvl in pyr:
+                fxl, fyl, cxl, cyl = _level_intrinsics(
+                    cam, tuple(lvl.shape), base)
+                z = X[:, 2]
+                u = fxl * X[:, 0] / z + cxl
+                v = fyl * X[:, 1] / z + cyl
+                self.kf_refs.append(_bilinear(lvl, u, v))
+                self.kf_shapes.append(tuple(lvl.shape))
+            self.kf_pose_cw = se3_inverse(self.pose_wc)
         self.frames_since_kf = 0
         return True
+
+    def _align(self, pyr, depth: Optional[torch.Tensor]) -> _Aligned:
+        """The frame's alignment against the keyframe, the geometric
+        residual joining where ``depth`` is given: :func:`_align_body` by
+        :func:`~gslam_tpu_torch.ops.cuda.graphs.run` over the process's
+        graph for the inputs' shapes and the parameters, so that a
+        frame's ~13,500 operations at DVO's sizes are one launch on the
+        card (span ``direct/align/capture`` on a miss)."""
+        c = self.cfg
+        base = self.kf_shapes[0]
+        aligned = range(len(pyr) - 1, c.finest_level - 1, -1)
+        levels = tuple((li, _level_intrinsics(self.camera,
+                                              tuple(pyr[li].shape), base))
+                       for li in aligned)
+        inputs = dict(pose_wc=self.pose_wc, velocity=self.velocity,
+                      kf_pose_cw=self.kf_pose_cw, X=self.kf_X,
+                      valid=self.kf_valid, count=self.kf_count)
+        for li in aligned:
+            inputs[f"level{li}"] = pyr[li]
+            inputs[f"ref{li}"] = self.kf_refs[li]
+        if depth is not None:
+            inputs["depth"] = depth
+        params = (levels, c.gn_iters, c.huber_delta, c.depth_weight,
+                  c.huber_depth)
+        key = ("direct", self.device, *params,
+               *((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        return graphs.run(
+            graphs.PROCESS, key, functools.partial(_align_body, *params),
+            inputs, enabled=self.use_graphs, timer=self.timer,
+            span="direct/align")
 
     # ------------------------------------------------------------------
     def track(self, frame: FrameData) -> torch.Tensor:
@@ -261,55 +379,46 @@ class DirectOdometry:
 
         frac = 0.0
         err = 0.0
+        n_inliers = 0
         if self.kf_X is None:
             self._make_keyframe(depth, pyr)
         else:
-            # init: constant velocity in the current-camera chain
-            # T_c(t-1)<-kf = T_c(t-1)<-w o T_w<-kf
-            T_ck_prev = se3_mul(se3_inverse(self.pose_wc),
-                                se3_inverse(self.kf_pose_cw))
-            T = se3_mul(self.velocity, T_ck_prev)
-            base = self.kf_shapes[0]
             use_d = c.use_depth_residual and depth is not None
             with self.timer.section("direct/align"):
-                for li in range(len(pyr) - 1, -1, -1):
-                    lvl = pyr[li]
-                    gx, gy = _gradients(lvl)
-                    fxl, fyl, cxl, cyl = _level_intrinsics(
-                        self.camera, tuple(lvl.shape), base)
-                    dl = dgx = dgy = None
-                    if use_d:
-                        # nearest resize: bilinear would blur depth
-                        # discontinuities into phantom surfaces
-                        dl = _resize_nearest(depth, lvl.shape)
-                        dgx, dgy = _gradients(dl)
-                    T, fr, er = _align_level(
-                        lvl, gx, gy, self.kf_X, self.kf_refs[li],
-                        self.kf_valid, T, c.gn_iters, fxl, fyl, cxl, cyl,
-                        c.huber_delta, depth=dl, dgx=dgx, dgy=dgy,
-                        depth_weight=c.depth_weight, huber_d=c.huber_depth,
-                        use_depth=use_d)
-                frac, err = torch.stack([fr.to(torch.float32),
-                                         er]).tolist()   # the one fetch
-            if frac >= c.min_valid_frac:
-                pose_cw = se3_mul(T, self.kf_pose_cw)
-                self.velocity = se3_mul(pose_cw, self.pose_wc)
-                self.pose_wc = se3_inverse(pose_cw)
+                out = self._align(pyr, depth if use_d else None)
+                with self.timer.section("direct/align/fetch"):
+                    frac, err, points = out.scalars.tolist()
+            tracked = frac >= c.min_valid_frac
+            made = not tracked
+            if tracked:
+                self.pose_wc, self.velocity = out.pose_wc, out.velocity
                 self.frames_since_kf += 1
                 if (frac < c.kf_overlap
                         or self.frames_since_kf >= c.kf_max_gap):
-                    self._make_keyframe(depth, pyr)
+                    made = self._make_keyframe(depth, pyr)
             else:
                 # lost: coast on the motion model, re-anchor
                 self.pose_wc = se3_inverse(se3_mul(
                     self.velocity, se3_inverse(self.pose_wc)))
-                self._make_keyframe(depth, pyr)
+                made = self._make_keyframe(depth, pyr)
+            # frac is a float32 quotient of two counts under 2^24, so this
+            # recovers the in-bounds count exactly
+            self.timer.count("direct/inbounds", round(frac * points))
+            self.timer.count("direct/points", int(points))
+            self.timer.count("direct/keyframes", int(made))
+            self.timer.count("direct/lost", int(not tracked))
+            n_inliers = int(frac * c.n_points)
+            # the rounding kept on the side of this frame's decision, so
+            # that n_inliers < min_track_inliers exactly where it coasted
+            floor = c.min_track_inliers
+            n_inliers = max(n_inliers, floor) if tracked else \
+                min(n_inliers, floor - 1)
 
         self.trajectory.append(self.pose_wc)
         self.timestamps.append(frame.timestamp)
         self.stats.append({"n_features": int(c.n_points),
                            "n_matches": int(frac * c.n_points),
-                           "n_inliers": int(frac * c.n_points),
+                           "n_inliers": n_inliers,
                            "photo_err": err})
         return self.pose_wc
 

@@ -262,4 +262,7 @@ def test_twelve_frame_run_against_reference(frames):
     assert sum(s["n_inliers"] > 100 for s in slam.stats) >= N - 2
     assert [s["n_inliers"] for s in slam.stats] == \
         [s["n_inliers"] for s in jo.stats]
-    assert set(slam.timer.stats()) == {"direct/pyramid", "direct/align"}
+    assert set(slam.timer.stats()) == {
+        "direct/pyramid", "direct/align", "direct/align/fetch",
+        "direct/keyframe", "direct/inbounds", "direct/points",
+        "direct/keyframes", "direct/lost"}
